@@ -1,0 +1,285 @@
+"""Transformer building blocks (the JAX package's models/transformer.py).
+
+Parameter names mirror the flax modules (``q/k/v/o``, ``up/down``,
+``ln1/ln2``) so :mod:`interop` maps one tree onto the other by name.
+Attention routes through ``ops.attention.dot_product_attention``; the
+paged decode path through ``ops.paged_attention.paged_decode_attention``,
+which launches the CUDA paged-decode kernel on the card.
+
+This slice carries what GPT-2 serving runs: float32, pre-LN, causal
+multi-head attention. Not in it, and refused when asked for:
+mixture-of-experts MLPs, rematerialisation and sequence parallelism; the
+contiguous (non-paged) KV cache. GQA, RoPE, post-LN, masks and other
+dtypes land with the models that use them (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_pytorch_example_tpu_torch.ops.attention import (
+    dot_product_attention,
+)
+from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+)
+
+
+def _not_in_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet; see ROADMAP.md "
+        "queue 1"
+    )
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` (truncated normal, variance 1/fan_in) for a
+    torch ``Linear`` weight (out, in), drawn on the CPU from ``generator``
+    and copied in, so the weights do not depend on the device."""
+    fan_in = weight.shape[1]
+    # 0.8796... = std of a unit normal truncated to [-2, 2]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    cpu = torch.empty(weight.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    with torch.no_grad():
+        weight.copy_(cpu)
+
+
+def normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    cpu = torch.empty(param.shape, dtype=torch.float32)
+    nn.init.normal_(cpu, std=std, generator=generator)
+    with torch.no_grad():
+        param.copy_(cpu)
+
+
+def tied_head_logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """LM-head logits against a tied (V, D) embedding matrix."""
+    return torch.matmul(x, embedding.t())
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention; layout (batch, seq, heads, head_dim) end to end.
+
+    With ``paged_num_blocks > 0`` (and ``decode=True``) the module owns one
+    layer's share of the paged KV pool as the buffers ``pages_k`` /
+    ``pages_v`` of shape (num_blocks, block_size, num_heads, head_dim).
+    Block 0 is the scratch block: unallocated table entries point at it,
+    so writes past a row's true length land harmlessly. The engine passes
+    ``page_table`` (batch, max_blocks) int32 and ``row_lens`` (batch,)
+    int32 with every call; the module never changes them.
+    """
+
+    def __init__(
+        self,
+        num_heads: int,
+        head_dim: int,
+        model_dim: int,
+        *,
+        causal: bool = False,
+        use_flash: Optional[bool] = None,
+        decode: bool = False,
+        paged_num_blocks: int = 0,
+        paged_block_size: int = 16,
+        paged_max_blocks: int = 0,
+    ):
+        super().__init__()
+        if decode and paged_num_blocks <= 0:
+            raise _not_in_slice("the contiguous decode cache (generate())")
+        if decode and not causal:
+            raise ValueError("decode mode supports causal attention only")
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.causal = causal
+        self.use_flash = use_flash
+        self.decode = decode
+        self.paged_num_blocks = paged_num_blocks
+        self.paged_block_size = paged_block_size
+        self.paged_max_blocks = paged_max_blocks
+        features = num_heads * head_dim
+        self.q = nn.Linear(model_dim, features)
+        self.k = nn.Linear(model_dim, features)
+        self.v = nn.Linear(model_dim, features)
+        self.o = nn.Linear(features, model_dim)
+        if decode:
+            nb, bs, mb = paged_num_blocks, paged_block_size, paged_max_blocks
+            if nb < 2 or bs < 1 or mb < 1:
+                raise ValueError(
+                    "paged decode needs paged_num_blocks >= 2 (block 0 is "
+                    "scratch), paged_block_size >= 1 and paged_max_blocks "
+                    f">= 1; got {nb}/{bs}/{mb}"
+                )
+            shape = (nb, bs, num_heads, head_dim)
+            # the pool is state, not weights: kept out of the state_dict
+            self.register_buffer("pages_k", torch.zeros(shape),
+                                 persistent=False)
+            self.register_buffer("pages_v", torch.zeros(shape),
+                                 persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (self.q, self.k, self.v, self.o):
+            lecun_normal_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+        if self.decode:
+            self.pages_k.zero_()
+            self.pages_v.zero_()
+
+    def forward(self, x, *, page_table=None, row_lens=None):
+        batch, seq = x.shape[0], x.shape[1]
+        shape = (batch, seq, self.num_heads, self.head_dim)
+        q = self.q(x).reshape(shape)
+        k = self.k(x).reshape(shape)
+        v = self.v(x).reshape(shape)
+        if self.decode:
+            if page_table is None or row_lens is None:
+                raise ValueError(
+                    "paged decode needs the engine's page_table and row_lens"
+                )
+            out = self._paged_step(q, k, v, page_table, row_lens)
+        else:
+            out = dot_product_attention(
+                q, k, v, causal=self.causal, use_flash=self.use_flash,
+            )
+        return self.o(out.reshape(batch, seq, self.num_heads * self.head_dim))
+
+    def _paged_step(self, q, k, v, table, lens):
+        """Paged-KV attention: ``seq > 1`` is a prefill of fresh rows
+        (``row_lens == 0`` by engine contract, bucket-padded to a multiple
+        of the block size); ``seq == 1`` the one-token decode step.
+
+        Both write this call's K/V into the pool IN PLACE with
+        ``index_put_`` (JAX returns a new pool instead); the pool is
+        engine-owned state, so nothing else holds the old values.
+        """
+        batch, seq = q.shape[0], q.shape[1]
+        bs, mb = self.paged_block_size, self.paged_max_blocks
+        if seq > 1:
+            # ---- prefill: K/V land in the rows' pool blocks via ONE batched
+            # scatter over the (row, block) table entries; attention is plain
+            # causal self-attention over this call's tokens (pad tokens sit
+            # at later positions, so real logits never see them)
+            if seq % bs:
+                raise ValueError(
+                    f"prefill length {seq} must be a multiple of "
+                    f"paged_block_size {bs}"
+                )
+            n_blk = seq // bs
+            if n_blk > mb:
+                raise ValueError(
+                    f"prefill bucket {seq} needs {n_blk} blocks > "
+                    f"paged_max_blocks {mb}"
+                )
+            block_ids = table[:, :n_blk].reshape(-1).long()
+            shape = (batch * n_blk, bs, self.num_heads, self.head_dim)
+            self.pages_k[block_ids] = k.reshape(shape)
+            self.pages_v[block_ids] = v.reshape(shape)
+            return dot_product_attention(q, k, v, causal=True, use_flash=False)
+
+        # ---- decode: the token of row b sits at absolute position
+        # lens[b]; inactive rows' tables are all-scratch, so their writes
+        # pile up on block 0 and are never read by a live row
+        positions = lens[:, None].long() + torch.arange(seq, device=q.device)
+        blk_j = positions // bs
+        block_idx = torch.where(
+            blk_j < mb,
+            torch.gather(table.long(), 1, blk_j.clamp(max=mb - 1)),
+            0,
+        )
+        off = positions % bs
+        self.pages_k[block_idx, off] = k
+        self.pages_v[block_idx, off] = v
+        return paged_decode_attention(
+            q, self.pages_k, self.pages_v, table, positions
+        )
+
+
+class MlpBlock(nn.Module):
+    """Position-wise feed-forward: up -> tanh GELU (flax ``nn.gelu``'s
+    default) -> down."""
+
+    def __init__(self, mlp_dim: int, model_dim: int):
+        super().__init__()
+        self.up = nn.Linear(model_dim, mlp_dim)
+        self.down = nn.Linear(mlp_dim, model_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (self.up, self.down):
+            lecun_normal_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x):
+        return self.down(F.gelu(self.up(x), approximate="tanh"))
+
+
+class TransformerBlock(nn.Module):
+    """One pre-LN block (GPT): x + attn(ln1(x)), then + mlp(ln2(x))."""
+
+    def __init__(
+        self,
+        num_heads: int,
+        head_dim: int,
+        model_dim: int,
+        mlp_dim: int,
+        *,
+        layer_norm_epsilon: float = 1e-5,
+        **attn_kw,
+    ):
+        super().__init__()
+        self.attn = MultiHeadAttention(num_heads, head_dim, model_dim,
+                                       **attn_kw)
+        self.mlp = MlpBlock(mlp_dim, model_dim)
+        self.ln1 = nn.LayerNorm(model_dim, eps=layer_norm_epsilon)
+        self.ln2 = nn.LayerNorm(model_dim, eps=layer_norm_epsilon)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+        for ln in (self.ln1, self.ln2):
+            ln.reset_parameters()
+
+    def forward(self, x, *, page_table=None, row_lens=None):
+        x = x + self.attn(self.ln1(x), page_table=page_table,
+                          row_lens=row_lens)
+        return x + self.mlp(self.ln2(x))
+
+
+class TransformerStack(nn.Module):
+    """N homogeneous transformer blocks (``layers.<i>`` = flax ``layer_i``)."""
+
+    def __init__(
+        self,
+        num_layers: int,
+        num_heads: int,
+        head_dim: int,
+        model_dim: int,
+        mlp_dim: int,
+        *,
+        remat: bool = False,
+        moe_experts: int = 0,
+        seq_axis: Optional[str] = None,
+        **block_kw,
+    ):
+        super().__init__()
+        if remat:
+            raise _not_in_slice("remat")
+        if moe_experts:
+            raise _not_in_slice("mixture-of-experts (moe_experts > 0)")
+        if seq_axis is not None:
+            raise _not_in_slice("sequence parallelism (seq_axis)")
+        self.layers = nn.ModuleList(
+            TransformerBlock(num_heads, head_dim, model_dim, mlp_dim, **block_kw)
+            for _ in range(num_layers)
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in self.layers:
+            layer.reset_parameters(generator)
+
+    def forward(self, x, *, page_table=None, row_lens=None):
+        for layer in self.layers:
+            x = layer(x, page_table=page_table, row_lens=row_lens)
+        return x

@@ -1,0 +1,9 @@
+"""Runtime: device resolution and rank-tagged logging."""
+
+from distributed_pytorch_example_tpu_torch.runtime.device import resolve_device
+from distributed_pytorch_example_tpu_torch.runtime.logging import (
+    get_logger,
+    setup_logging,
+)
+
+__all__ = ["get_logger", "resolve_device", "setup_logging"]

@@ -1,0 +1,245 @@
+"""Chrome trace-event span writer (Perfetto / chrome://tracing loadable).
+
+Streams complete ("ph": "X") events as a JSON array next to
+``metrics.jsonl``: one event per ``span(...)`` context, timestamped in
+microseconds off the monotonic clock, ``pid`` = process index, ``tid`` =
+a small stable id per host thread. Buffered writes, thread-safe, and drop-on-closed so late
+spans from a background producer thread never crash teardown.
+
+Also:
+
+- ``counter(name, value)`` emits "ph": "C" counter samples (queue depth,
+  KV-pool occupancy) that Perfetto renders as value tracks;
+- ``instant(name, **args)`` emits "ph": "i" instant events (sentinel
+  ``trigger`` stamps);
+- the event array survives abnormal exits: ``close()`` is registered on
+  ``atexit`` (and runs from ``__del__``), tolerates re-close, and a file
+  killed before close still parses because every flush leaves the tail
+  at a complete event boundary and loaders accept the unterminated-array
+  form (the documented Trace Event "JSON Array Format" relaxation);
+- per-process views: ``PrefixedTrace(base, prefix, pid=...)`` stamps its
+  events with an overriding ``pid`` and announces a ``process_name``
+  metadata row, so each serving replica renders as its own Perfetto
+  process lane inside the ONE shared trace file.
+
+Pure Python; the same file format as the JAX package's writer.
+"""
+
+from __future__ import annotations
+
+import atexit
+import contextlib
+import json
+import os
+import threading
+import time
+from typing import List, Optional, Union
+
+
+def _now_us() -> int:
+    return time.perf_counter_ns() // 1000
+
+
+class TraceWriter:
+    """Buffered trace-event sink; no-op when ``path`` is None."""
+
+    def __init__(
+        self,
+        path: Optional[str],
+        process_index: int = 0,
+        flush_every: int = 256,
+    ):
+        self.path = path
+        self._lock = threading.Lock()
+        self._events: List[dict] = []
+        self._flush_every = flush_every
+        self._fh = None
+        self._wrote_any = False
+        self._tids: dict = {}
+        self._pid = process_index
+        if path:
+            parent = os.path.dirname(path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            self._fh = open(path, "w")
+            self._fh.write("[\n")
+            self._events.append({
+                "ph": "M", "name": "process_name", "pid": self._pid,
+                "tid": 0, "args": {"name": f"host{self._pid}"},
+            })
+            atexit.register(self.close)
+
+    def _tid(self) -> int:
+        ident = threading.get_ident()
+        tid = self._tids.get(ident)
+        if tid is None:
+            tid = len(self._tids)
+            self._tids[ident] = tid
+        return tid
+
+    def _append_locked(self, event: dict) -> None:
+        self._events.append(event)
+        if len(self._events) >= self._flush_every:
+            self._flush_locked()
+
+    def announce_process(self, pid: int, name: str) -> None:
+        """Label a ``pid`` lane (Perfetto process_name metadata row)."""
+        with self._lock:
+            if self._fh is None:
+                return
+            self._append_locked({
+                "ph": "M", "name": "process_name", "pid": pid,
+                "tid": 0, "args": {"name": name},
+            })
+
+    def add_complete(
+        self,
+        name: str,
+        ts_us: int,
+        dur_us: int,
+        pid: Optional[int] = None,
+        args: Optional[dict] = None,
+    ) -> None:
+        """Record one complete event (call under no lock; takes its own)."""
+        with self._lock:
+            if self._fh is None:
+                return  # closed: late spans from the prefetch thread drop
+            event = {
+                "name": name, "ph": "X", "ts": ts_us, "dur": max(dur_us, 1),
+                "pid": self._pid if pid is None else pid, "tid": self._tid(),
+            }
+            if args:
+                event["args"] = args
+            self._append_locked(event)
+
+    def counter(
+        self,
+        name: str,
+        value: Union[int, float, dict],
+        ts_us: Optional[int] = None,
+        pid: Optional[int] = None,
+    ) -> None:
+        """Record one counter sample ("ph": "C"): a number becomes a
+        single-series ``{"value": v}`` track, a dict plots one series per
+        key. Perfetto draws these as stacked value tracks per pid."""
+        with self._lock:
+            if self._fh is None:
+                return
+            series = value if isinstance(value, dict) else {"value": value}
+            self._append_locked({
+                "name": name, "ph": "C",
+                "ts": _now_us() if ts_us is None else ts_us,
+                "pid": self._pid if pid is None else pid, "tid": 0,
+                "args": series,
+            })
+
+    def instant(
+        self,
+        name: str,
+        ts_us: Optional[int] = None,
+        pid: Optional[int] = None,
+        **args,
+    ) -> None:
+        """Record one instant event ("ph": "i", process scope) — the
+        sentinel ``trigger`` stamp the anomaly detectors drop into the
+        timeline at the moment they arm the profiler."""
+        with self._lock:
+            if self._fh is None:
+                return
+            event = {
+                "name": name, "ph": "i", "s": "p",
+                "ts": _now_us() if ts_us is None else ts_us,
+                "pid": self._pid if pid is None else pid, "tid": self._tid(),
+            }
+            if args:
+                event["args"] = args
+            self._append_locked(event)
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        t0 = _now_us()
+        try:
+            yield
+        finally:
+            self.add_complete(name, t0, _now_us() - t0)
+
+    def _flush_locked(self) -> None:
+        if self._fh is None or not self._events:
+            return
+        chunk = ",\n".join(json.dumps(e) for e in self._events)
+        self._fh.write((",\n" if self._wrote_any else "") + chunk)
+        self._wrote_any = True
+        self._events.clear()
+        self._fh.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is None:
+                return  # re-close tolerated (atexit after explicit close)
+            self._flush_locked()
+            self._fh.write("\n]\n")
+            self._fh.close()
+            self._fh = None
+        try:
+            atexit.unregister(self.close)
+        except Exception:  # pragma: no cover - interpreter teardown
+            pass
+
+    def __del__(self):  # abnormal teardown still terminates the array
+        try:
+            self.close()
+        except Exception:  # pragma: no cover - interpreter teardown
+            pass
+
+
+class PrefixedTrace:
+    """A named view of one :class:`TraceWriter` — every span lands as
+    ``"<prefix>/<name>"`` in the shared trace file.
+
+    Each replica's engine gets one of these (prefix = replica id), so a
+    2-replica run produces ``r0/decode_step`` and
+    ``r1/decode_step`` spans in ONE Chrome trace. With ``pid`` set the
+    view stamps its events with that process id and announces
+    ``process_name = prefix`` once, so each replica renders as its own
+    Perfetto process lane ; without it, events ride the base
+    writer's pid and replicas separate by ``tid`` track only.
+    Exposes the subset of the writer API the serving engine uses.
+    """
+
+    def __init__(
+        self,
+        base: TraceWriter,
+        prefix: str,
+        pid: Optional[int] = None,
+        process_name: Optional[str] = None,
+    ):
+        self._base = base
+        self._prefix = prefix
+        self._pid = pid
+        if pid is not None:
+            base.announce_process(pid, process_name or prefix)
+
+    def add_complete(self, name: str, ts_us: int, dur_us: int,
+                     args: Optional[dict] = None) -> None:
+        self._base.add_complete(
+            f"{self._prefix}/{name}", ts_us, dur_us, pid=self._pid,
+            args=args,
+        )
+
+    def counter(self, name: str, value, ts_us: Optional[int] = None) -> None:
+        self._base.counter(
+            f"{self._prefix}/{name}", value, ts_us=ts_us, pid=self._pid
+        )
+
+    def instant(self, name: str, ts_us: Optional[int] = None, **args) -> None:
+        self._base.instant(
+            f"{self._prefix}/{name}", ts_us=ts_us, pid=self._pid, **args
+        )
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        t0 = _now_us()
+        try:
+            yield
+        finally:
+            self.add_complete(name, t0, _now_us() - t0)
