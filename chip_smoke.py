@@ -13,15 +13,30 @@ last line:
    float32 matmuls and convolutions run in full float32);
 2. build  — compile every CUDA kernel in the port's ``csrc/`` with nvcc;
 3. kernel — hold each kernel against its plain PyTorch version on the
-   card at the main path's shapes, then time kernel, plain version and one
-   library call, beside the least time the card could take (the bound);
+   card at the main paths' shapes, then time kernel, plain version and one
+   library call, beside the least time the card could take (the bound):
+   the paged-decode kernel (K2), then the flash-attention forward and
+   backward (K1);
 4. serve  — GPT-2 124M at full width (random weights from a seed) through
    ``InferenceEngine.run``: 16 requests greedy, then at temperature 1.0 with
    top-k 50; checks every request completes, the paged-decode kernel ran
    once per layer per decode step, and the paged logits and greedy tokens
    agree with the port's plain full-sequence forward;
 5. cli    — ``python -m distributed_pytorch_example_tpu_torch.serve``
-   at its defaults; its JSON line must parse.
+   at its defaults; its JSON line must parse;
+6. train  — GPT-2 124M at full width and depth, bf16, fused loss, batch 16
+   x 1024 tokens, through ``Trainer.fit`` on synthetic tokens: 10 steps and
+   one validation batch. Checks every loss is finite, the flash forward ran
+   12 x (steps + validation batches) times and its backward 12 x steps,
+   and the same run with plain attention follows the same loss trajectory
+   and takes the same first-step gradients, leaf by leaf; prints step ms,
+   tokens/s and peak memory;
+7. train cli — ``python -m distributed_pytorch_example_tpu_torch.train``
+   for GPT-2 (bf16, 16 x 1024, 4 steps) and at its defaults (SimpleNet, one
+   epoch); both must log "Training completed".
+
+Each main path (serve, train) runs with every launch count set to 0 just
+before it and read just after.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -44,8 +59,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
               ("H100", 3.35e12))
 _F32_PEAK = 67e12
+_BF16_PEAK = 989e12  # dense tensor-core rate, H100 SXM
 
 SLOTS, HEADS, HEAD_DIM, LAYERS = 8, 12, 64, 12
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 16, 1024
 BLOCK_SIZE, MAX_BLOCKS, NUM_BLOCKS = 16, 64, 513
 # row lengths straddling block edges: first/last position of a block,
 # one-block rows, a full table
@@ -271,6 +288,195 @@ def check_kernels(torch, bandwidth):
 
 
 # ---------------------------------------------------------------------------
+# 3b. K1 (flash attention) check + timing
+# ---------------------------------------------------------------------------
+
+# tolerances of K1 against its plain version on the same inputs: o and lse
+# absolute, gradients relative to max |ref|. float32: both sides float32,
+# only the summation order differs. bf16: float32 math on bf16 inputs, but
+# p and ds are rounded to bf16 before their products (relative to the
+# running max in the kernel, the global max in the plain version) and the
+# outputs are rounded to bf16 (half an ulp at |o| < 2 is 7.8e-3).
+FLASH_TOL = {
+    "float32": {"o": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4},
+    "bfloat16": {"o": 1e-2, "lse": 1e-4, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2},
+}
+
+
+def flash_case(torch, *, batch, heads, kv_heads, seq, head_dim, dtype,
+               masked, seed, device="cuda"):
+    """q/k/v/do drawn on the CPU from ``seed``; with ``masked``, a (B, S)
+    float32 key mask where row 0 loses its last quarter of keys and the
+    last row has none (a dead row)."""
+    gen = torch.Generator().manual_seed(seed)
+    shape_q = (batch, seq, heads, head_dim)
+    shape_kv = (batch, seq, kv_heads, head_dim)
+    q, do = (torch.randn(shape_q, generator=gen) for _ in range(2))
+    k, v = (torch.randn(shape_kv, generator=gen) for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.ones(batch, seq)
+        mask[0, seq - seq // 4:] = 0
+        mask[-1] = 0
+        mask = mask.to(device)
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            do.to(device, dtype), mask)
+
+
+def flash_errors(torch, got, ref):
+    """Max errors of (o, lse, dq, dk, dv): o and lse absolute, gradients
+    relative to max |ref|."""
+    errs = {}
+    for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        diff = (g.float() - r.float()).abs().max().item()
+        if name in ("dq", "dk", "dv"):
+            diff /= max(r.float().abs().max().item(), 1e-30)
+        errs[name] = diff
+    return errs
+
+
+def check_flash(torch, bandwidth):
+    """K1 against its plain versions on the card, then its timing at the
+    training path's shape (B=16, N=12, S=1024, H=64, bf16, causal)."""
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, N, S, H = TRAIN_BATCH, HEADS, TRAIN_SEQ, HEAD_DIM
+    # (name, case, causal): the first is the training path's own shape,
+    # whose inputs the timing below reuses
+    cases = [
+        ("bf16-causal-main", dict(batch=B, heads=N, kv_heads=N, seq=S,
+                                  head_dim=H, dtype=bf16, masked=False),
+         True),
+        ("fp32-full-256", dict(batch=2, heads=4, kv_heads=4, seq=256,
+                               head_dim=64, dtype=f32, masked=False), False),
+        ("bf16-gqa-12/4", dict(batch=2, heads=12, kv_heads=4, seq=256,
+                               head_dim=64, dtype=bf16, masked=False), True),
+        ("bf16-kvmask-deadrow", dict(batch=2, heads=4, kv_heads=4, seq=256,
+                                     head_dim=64, dtype=bf16, masked=True),
+         False),
+        ("bf16-h128", dict(batch=2, heads=4, kv_heads=4, seq=256,
+                           head_dim=128, dtype=bf16, masked=False), True),
+        ("bf16-h256", dict(batch=2, heads=4, kv_heads=2, seq=256,
+                           head_dim=256, dtype=bf16, masked=True), False),
+        ("fp32-h256", dict(batch=1, heads=2, kv_heads=2, seq=256,
+                           head_dim=256, dtype=f32, masked=False), True),
+    ]
+    errors = {}
+    for i, (name, kw, causal) in enumerate(cases):
+        q, k, v, do, mask = flash_case(torch, seed=100 + i, **kw)
+        args = dict(causal=causal, kv_mask=mask,
+                    softmax_scale=kw["head_dim"] ** -0.5)
+        o, lse = flash_attention_fwd(q, k, v, **args)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **args)
+        ro, rlse = flash_attention_fwd_reference(q, k, v, **args)
+        rgrads = flash_attention_bwd_reference(q, k, v, o, lse, do, **args)
+        torch.cuda.synchronize()
+        errs = flash_errors(torch, (o, lse, *grads), (ro, rlse, *rgrads))
+        tols = FLASH_TOL[str(kw["dtype"]).split(".")[-1]]
+        for key, err in errs.items():
+            check(math.isfinite(err) and err <= tols[key],
+                  f"K1 {name}: {key} error {err:.3e} > tol {tols[key]:.0e}")
+        if mask is not None:
+            check(bool((o[-1] == 0).all()) and bool((lse[-1] == -1e30).all())
+                  and bool((grads[0][-1] == 0).all()),
+                  f"K1 {name}: the dead row is not 0 / NEG_INF / 0")
+        errors[name] = errs
+        if name == "bf16-causal-main":
+            main = (q, k, v, do, o, lse)
+            max_abs = {
+                "fwd": (o.float() - ro.float()).abs().max().item(),
+                "bwd": max((g.float() - r.float()).abs().max().item()
+                           for g, r in zip(grads, rgrads)),
+            }
+        say("kernel", f"K1 {name}: " + ", ".join(
+            f"{key} {err:.3e} (tol {tols[key]:.0e})"
+            for key, err in errs.items()))
+    say("kernel", "K1 tolerances: o and lse absolute, gradients relative to "
+                  "max |ref|; bf16 rounds p and ds before their products and "
+                  "rounds the outputs, float32 differs in summation order")
+
+    # timing at the training path's shape, on the main case's inputs
+    q, k, v, do, o, lse = main
+    args = dict(causal=True, kv_mask=None, softmax_scale=H ** -0.5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        qt.grad = kt.grad = vt.grad = None
+        out = sdpa(qt, kt, vt, is_causal=True)
+        out.backward(dot)
+
+    ms = {}
+    # plain, kernel, kernel, plain: keep the comparison inside one call
+    for label, fn, iters in (
+        ("fwd_plain", lambda: flash_attention_fwd_reference(q, k, v, **args), 5),
+        ("fwd", lambda: flash_attention_fwd(q, k, v, **args), 20),
+        ("fwd2", lambda: flash_attention_fwd(q, k, v, **args), 20),
+        ("fwd_plain2", lambda: flash_attention_fwd_reference(q, k, v, **args), 5),
+        ("bwd_plain", lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, **args), 5),
+        ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args), 20),
+        ("bwd2", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args), 20),
+        ("bwd_plain2", lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, **args), 5),
+        ("sdpa_fwd", lambda: sdpa(qt, kt, vt, is_causal=True), 20),
+        ("sdpa_fwd_bwd", sdpa_fwd_bwd, 20),
+    ):
+        ms[label] = time_cold(torch, fn, iters=iters)
+    elem = B * S * N * H * 2  # bytes of one bf16 (B, S, N, H) tensor
+    row = B * N * S * 4       # bytes of one float32 (B, N, S) tensor
+    # the causal triangle's q.k pairs, 2 flops per multiply-add
+    tri = B * N * H * S * (S + 1)
+    bounds = {
+        # reads q, k, v; writes o and lse. Products: q.k^T and p.v
+        "fwd": (4 * elem + row, 2 * tri),
+        # reads q, k, v, o, do, lse; writes dq, dk, dv. Products: the
+        # q.k^T recompute, dO.v^T, p^T.dO, ds^T.q, ds.k
+        "bwd": (8 * elem + row, 5 * tri),
+    }
+    entries = []
+    for kind, (nbytes, flops) in bounds.items():
+        bytes_ms = nbytes / bandwidth * 1e3
+        ops_ms = flops / _BF16_PEAK * 1e3
+        kernel_ms = min(ms[kind], ms[kind + "2"])
+        plain_ms = min(ms[kind + "_plain"], ms[kind + "_plain2"])
+        library_ms = ms["sdpa_fwd"] if kind == "fwd" else ms["sdpa_fwd_bwd"]
+        say("kernel", f"flash_attention_{kind} bf16 causal B={B} N={N} S={S} "
+                      f"H={H}: kernel {ms[kind]:.4f}/{ms[kind + '2']:.4f} ms, "
+                      f"plain {ms[kind + '_plain']:.4f}/"
+                      f"{ms[kind + '_plain2']:.4f} ms, library "
+                      f"{library_ms:.4f} ms (SDPA "
+                      f"{'forward' if kind == 'fwd' else 'forward + backward'}"
+                      f"), bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} "
+                      f"bytes, {flops} flops)")
+        entries.append({
+            "name": f"flash_attention_{kind}",
+            "route": "cuda",
+            "source": "distributed_pytorch_example_tpu_torch/csrc/"
+                      "flash_attention.cu",
+            "replaces": "distributed_pytorch_example_tpu/ops/pallas/"
+                        "flash_attention.py:"
+                        + ("244" if kind == "fwd" else "626"),
+            "launches": None,  # filled from the training path's run
+            "max_abs_err": max_abs[kind],
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+        })
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # 4. serve: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -318,7 +524,7 @@ def serve(torch):
         engine = InferenceEngine(model, num_slots=SLOTS, device="cuda", **kw)
         engine.warmup()
         torch.cuda.synchronize()
-        paged_flash_decode.launches = 0
+        reset_counts()
         report = engine.run(workload(Request))
         torch.cuda.synchronize()
         launches = paged_flash_decode.launches
@@ -428,6 +634,183 @@ def cli():
                f"{json.dumps(line)}")
 
 
+# ---------------------------------------------------------------------------
+# 6. train: the training path at full width
+# ---------------------------------------------------------------------------
+
+# per-step loss of the flash run against the plain-attention run: both bf16;
+# they round attention differently (the plain path rounds the logits to
+# bf16, the kernel keeps them float32), and 10 Adam steps carry it on
+LOSS_TOL = 2e-2
+# per-leaf gradients of the first step (the same weights and batch), flash
+# against plain attention: ||g - g_plain|| / ||g_plain|| per leaf. Both bf16
+# and rounding attention differently; a missing or wrong dq, dk or dv term
+# puts the q, k or v projection's leaves at O(1). The k-projection bias is
+# left out: its gradient is zero in exact arithmetic (a softmax ignores a
+# shift shared by a whole row of logits), so both sides hold rounding noise.
+GRAD_TOL = 5e-2
+
+
+def reset_counts():
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        paged_flash_decode,
+    )
+
+    for kernel in (paged_flash_decode, flash_attention_fwd,
+                   flash_attention_bwd):
+        kernel.launches = 0
+
+
+def train_run(torch, use_flash):
+    """GPT-2 124M through Trainer.fit; returns (losses, step ms, history,
+    peak bytes, the first step's gradients by name on the CPU)."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        DeviceLoader,
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        Trainer,
+        make_optimizer,
+    )
+
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                 use_flash=use_flash, device="cuda", seed=0)
+    train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, seed=0)
+    val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
+    trainer = Trainer(model, CausalLMTask(),
+                      make_optimizer(model.parameters(), "adam", 1e-3),
+                      log_every=5)
+    step_fn, losses, events, first_grads = trainer.train_step, [], [], {}
+
+    def timed(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step_fn(state, batch)
+        end.record()
+        if not events:  # copied to the host: the peak stays the run's own
+            first_grads.update(
+                (name, p.grad.detach().to("cpu", copy=True))
+                for name, p in model.named_parameters() if p.grad is not None
+            )
+        losses.append(metrics["loss"])
+        events.append((start, end))
+        return metrics
+
+    trainer.train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history = trainer.fit(
+        DeviceLoader(train_ds, TRAIN_BATCH, device="cuda", seed=0),
+        DeviceLoader(val_ds, TRAIN_BATCH, device="cuda", shuffle=False),
+        epochs=1,
+    )
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    del trainer, model
+    torch.cuda.empty_cache()
+    return [float(x) for x in losses], step_ms, history, peak, first_grads
+
+
+def train(torch):
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    reset_counts()
+    losses, step_ms, history, peak, grads = train_run(torch, use_flash=None)
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train: losses {losses}")
+    check(math.isfinite(history[0]["val_loss"]),
+          f"train: validation loss {history[0]['val_loss']}")
+    val_batches = 1
+    check(fwd == LAYERS * (TRAIN_STEPS + val_batches),
+          f"train: flash forward launched {fwd} times, want {LAYERS} x "
+          f"({TRAIN_STEPS} steps + {val_batches} validation batch)")
+    check(bwd == LAYERS * TRAIN_STEPS,
+          f"train: flash backward launched {bwd} times, want {LAYERS} x "
+          f"{TRAIN_STEPS} steps")
+    steady = sorted(step_ms[2:])
+    median = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say("train", f"GPT-2 124M bf16 fused loss, batch {TRAIN_BATCH} x "
+                 f"{TRAIN_SEQ}: {TRAIN_STEPS} steps, losses "
+                 f"{[round(x, 4) for x in losses]}, val loss "
+                 f"{history[0]['val_loss']:.4f}; step ms {step_ms} (median "
+                 f"of steps 3+ {median:.2f} ms = {tokens / median * 1e3:.0f} "
+                 f"tokens/s); epoch {history[0]['samples_per_sec']:.1f} "
+                 f"samples/s; peak memory {peak / 2**30:.2f} GiB; K1 launches "
+                 f"fwd {fwd} bwd {bwd}")
+    plain, plain_ms, _, plain_peak, plain_grads = train_run(torch,
+                                                            use_flash=False)
+    worst = max(abs(a - b) for a, b in zip(losses, plain))
+    check(worst <= LOSS_TOL,
+          f"train: flash vs plain attention losses differ by {worst:.3e} > "
+          f"{LOSS_TOL} ({losses} vs {plain})")
+    check(grads.keys() == plain_grads.keys(),
+          "train: flash and plain runs have different gradient leaves")
+    gaps = {
+        name: ((g - plain_grads[name]).norm()
+               / plain_grads[name].norm().clamp_min(1e-30)).item()
+        for name, g in grads.items() if not name.endswith("attn.k.bias")
+    }
+    worst_leaf = max(gaps, key=gaps.get)
+    check(all(math.isfinite(x) and x <= GRAD_TOL for x in gaps.values()),
+          f"train: first-step gradient of {worst_leaf} differs from plain "
+          f"attention's by {gaps[worst_leaf]:.3e} of its norm > {GRAD_TOL}")
+    qkv = {name: gap for name, gap in gaps.items()
+           if name.endswith(("attn.q.weight", "attn.k.weight",
+                             "attn.v.weight"))}
+    worst_qkv = max(qkv, key=qkv.get)
+    say("train", f"first-step gradients, flash vs plain attention, "
+                 f"||g - g_plain|| / ||g_plain|| over {len(gaps)} leaves: "
+                 f"worst {gaps[worst_leaf]:.3e} ({worst_leaf}), worst q/k/v "
+                 f"projection {qkv[worst_qkv]:.3e} ({worst_qkv}) (tol "
+                 f"{GRAD_TOL}; attn.k.bias left out: zero in exact "
+                 f"arithmetic)")
+    plain_median = sorted(plain_ms[2:])[len(plain_ms[2:]) // 2]
+    say("train", f"plain attention, same seed and batches: losses "
+                 f"{[round(x, 4) for x in plain]}; worst per-step gap "
+                 f"{worst:.3e} (tol {LOSS_TOL}: both bf16, attention rounds "
+                 f"differently); median step {plain_median:.2f} ms; peak "
+                 f"memory {plain_peak / 2**30:.2f} GiB")
+    return fwd, bwd
+
+
+def train_cli():
+    runs = (
+        ["--model", "gpt2", "--dataset", "synthetic-tokens", "--seq-len",
+         "1024", "--dtype", "bfloat16", "--batch-size", "16", "--epochs", "1",
+         "--num-samples", "64"],
+        ["--epochs", "1"],
+    )
+    for args in runs:
+        cmd = [sys.executable, "-m",
+               "distributed_pytorch_example_tpu_torch.train", *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        log = proc.stdout + proc.stderr
+        check(proc.returncode == 0 and "Training completed" in log,
+              f"train CLI {args} exit {proc.returncode}: {log[-3000:]}")
+        tail = [line.split("] ", 1)[-1] for line in log.splitlines()
+                if "Throughput" in line or "Training completed" in line
+                or "Val Loss" in line]
+        say("train-cli", f"{' '.join(cmd[1:])} in "
+                         f"{time.perf_counter() - t0:.1f} s: {tail}")
+
+
 def main() -> int:
     import torch
 
@@ -447,15 +830,20 @@ def main() -> int:
         build()
         phase = "kernel"
         k2 = check_kernels(torch, bandwidth)
+        k1_fwd, k1_bwd = check_flash(torch, bandwidth)
         phase = "serve"
         k2["launches"] = serve(torch)
         phase = "cli"
         cli()
+        phase = "train"
+        k1_fwd["launches"], k1_bwd["launches"] = train(torch)
+        phase = "train-cli"
+        train_cli()
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [k2]}))
+    print(json.dumps({"kernels": [k2, k1_fwd, k1_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

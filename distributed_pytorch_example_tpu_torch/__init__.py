@@ -6,7 +6,10 @@ find, and replaces its TPU Pallas kernels with CUDA C++ kernels written for
 Hopper (``csrc/``). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card they raise instead of running on the CPU.
 
-This slice covers GPT-2 serving over the paged KV cache
+Ported so far: GPT-2 serving over the paged KV cache
 (``serving/engine.py``) with the paged-decode attention kernel
-(``ops/paged_attention.py`` + ``csrc/paged_decode.cu``).
+(``ops/paged_attention.py`` + ``csrc/paged_decode.cu``), and data-parallel
+training of SimpleNet and GPT-2 (``train.py`` -> ``train/loop.py``) with
+the flash-attention kernels forward and backward
+(``ops/flash_attention.py`` + ``csrc/flash_attention.cu``).
 """

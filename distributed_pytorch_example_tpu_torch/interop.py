@@ -1,4 +1,5 @@
-"""Carry GPT-2 weights between the JAX package and this port.
+"""Carry GPT-2 and SimpleNet weights (and gradients) between the JAX
+package and this port.
 
 The JAX package's GPT-2 param tree, as numpy arrays, maps onto the port's
 ``state_dict`` by name:
@@ -10,6 +11,11 @@ The JAX package's GPT-2 param tree, as numpy arrays, maps onto the port's
 - ``wpe`` (1, max_len, D) <-> ``wpe``;
 - flax ``decoder.layer_<i>`` <-> ``decoder.layers.<i>``.
 
+SimpleNet's flax ``Dense_<i>`` layers map onto the port's ``Dense_<i>``.
+Any name -> tensor mapping shaped like a ``state_dict`` maps the same way,
+so :func:`grads_of` carries a model's gradients to the flax tree of the
+JAX package's ``jax.grad``, leaf by leaf.
+
 Both directions copy values exactly, so a round trip is bit-exact. This
 module imports neither JAX nor the JAX package: the tree is plain nested
 dicts of numpy arrays (``jax.device_get`` of the flax params).
@@ -18,6 +24,8 @@ dicts of numpy arrays (``jax.device_get`` of the flax params).
 from __future__ import annotations
 
 from typing import Dict, Mapping
+
+from torch import nn
 
 import numpy as np
 import torch
@@ -85,3 +93,34 @@ def gpt2_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         "decoder": decoder,
         "final_ln": {"scale": a("final_ln.weight"), "bias": a("final_ln.bias")},
     }
+
+
+def simplenet_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SimpleNet params -> the port's SimpleNet state_dict."""
+    sd = {}
+    for name, dense in params.items():
+        sd[f"{name}.weight"] = torch.from_numpy(
+            np.array(np.asarray(dense["kernel"]).T, copy=True))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(dense["bias"], copy=True))
+    return sd
+
+
+def simplenet_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's SimpleNet state_dict (or gradients) -> a flax tree."""
+    names = sorted({k.split(".")[0] for k in state_dict})
+    return {
+        name: {
+            "kernel": np.ascontiguousarray(
+                state_dict[f"{name}.weight"].detach().cpu().numpy().T),
+            "bias": state_dict[f"{name}.bias"].detach().cpu().numpy().copy(),
+        }
+        for name in names
+    }
+
+
+def grads_of(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's gradients by parameter name, shaped like its
+    state_dict, for :func:`gpt2_state_dict_to_flax` /
+    :func:`simplenet_state_dict_to_flax`."""
+    return {name: p.grad for name, p in model.named_parameters()
+            if p.grad is not None}

@@ -1,6 +1,7 @@
-"""Models: GPT-2 and the shared transformer blocks."""
+"""Models: GPT-2, SimpleNet and the shared transformer blocks."""
 
 from distributed_pytorch_example_tpu_torch.models.gpt2 import GPT2
+from distributed_pytorch_example_tpu_torch.models.mlp import SimpleNet
 from distributed_pytorch_example_tpu_torch.models.transformer import (
     MlpBlock,
     MultiHeadAttention,
@@ -13,6 +14,7 @@ __all__ = [
     "GPT2",
     "MlpBlock",
     "MultiHeadAttention",
+    "SimpleNet",
     "TransformerBlock",
     "TransformerStack",
     "tied_head_logits",

@@ -2,7 +2,14 @@
 
 Pre-LN causal transformer: token + learned position embeddings -> pre-LN
 blocks with causal attention -> final LN (eps 1e-5) -> logits via the tied
-token-embedding matrix. Float32, without pipeline stages and without MoE.
+token-embedding matrix. Compute in ``dtype`` (float32 or bfloat16) with
+float32 parameters, as flax's ``dtype=``; without pipeline stages and
+without MoE. Attention auto-selects the flash kernel (K1) on the card
+where its shapes allow (``use_flash=None``).
+
+``logits_mode="hidden"`` returns the final hidden states instead of
+logits, for the fused chunked cross-entropy (``ops/chunked_ce.py``), which
+takes the tied head from :meth:`GPT2.head_params`.
 
 With ``decode=True`` and ``paged_num_blocks > 0`` the model serves over
 the paged KV pool (serving/engine.py): each call takes the engine's
@@ -23,6 +30,7 @@ from torch import nn
 from distributed_pytorch_example_tpu_torch.models.transformer import (
     TransformerStack,
     _not_in_slice,
+    layer_norm,
     normal_,
     tied_head_logits,
 )
@@ -40,6 +48,8 @@ class GPT2(nn.Module):
         mlp_dim: int = 3072,
         *,
         use_flash: Optional[bool] = None,
+        dtype: torch.dtype = torch.float32,
+        logits_mode: str = "full",
         decode: bool = False,
         paged_num_blocks: int = 0,
         paged_block_size: int = 16,
@@ -62,9 +72,16 @@ class GPT2(nn.Module):
             raise _not_in_slice("pipeline parallelism (pipe_axis)")
         if paged_verify:
             raise _not_in_slice("the speculative verify chunk (paged_verify)")
+        if logits_mode not in ("full", "hidden"):
+            raise ValueError(
+                f"logits_mode must be 'full' or 'hidden', got {logits_mode!r}"
+            )
+        if decode and logits_mode != "full":
+            raise ValueError("decode mode requires logits_mode='full'")
         dev = resolve_device(device)
         self.vocab_size, self.max_len, self.model_dim = vocab_size, max_len, model_dim
         self.num_layers, self.num_heads = num_layers, num_heads
+        self.dtype, self.logits_mode = dtype, logits_mode
         self.decode = decode
         self.paged_num_blocks = paged_num_blocks
         self.paged_block_size = paged_block_size
@@ -75,7 +92,7 @@ class GPT2(nn.Module):
             self.wpe = nn.Parameter(torch.empty(1, max_len, model_dim))
             self.decoder = TransformerStack(
                 num_layers, num_heads, model_dim // num_heads, model_dim,
-                mlp_dim, causal=True, layer_norm_epsilon=1e-5,
+                mlp_dim, causal=True, layer_norm_epsilon=1e-5, dtype=dtype,
                 use_flash=use_flash, decode=decode,
                 paged_num_blocks=paged_num_blocks,
                 paged_block_size=paged_block_size,
@@ -89,6 +106,10 @@ class GPT2(nn.Module):
     def device(self) -> torch.device:
         return self.wpe.device
 
+    def head_params(self):
+        """Tied LM-head weights for the fused loss: ((V, D) table, bias)."""
+        return self.wte.weight, None
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers: N(0, 0.02) token table, N(0, 0.01) position
         table, lecun-normal projections, zero biases, unit LayerNorms."""
@@ -100,7 +121,9 @@ class GPT2(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 page_table: Optional[torch.Tensor] = None,
                 row_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, S) int tokens -> (B, S, vocab) float32 logits."""
+        """(B, S) int tokens -> (B, S, vocab) float32 logits, or the
+        (B, S, D) final hidden states in ``dtype`` when
+        ``logits_mode="hidden"``."""
         seq = tokens.shape[1]
         if self.decode:
             if row_lens is None:
@@ -113,7 +136,9 @@ class GPT2(nn.Module):
             pos = self.wpe[0][positions.clamp(max=self.max_len - 1)]
         else:
             pos = self.wpe[:, :seq]
-        x = self.wte(tokens) + pos
+        x = self.wte(tokens).to(self.dtype) + pos.to(self.dtype)
         x = self.decoder(x, page_table=page_table, row_lens=row_lens)
-        x = self.final_ln(x)
-        return tied_head_logits(x, self.wte.weight)
+        x = layer_norm(self.final_ln, x, self.dtype)
+        if self.logits_mode == "hidden":
+            return x
+        return tied_head_logits(x, self.wte.weight, self.dtype)

@@ -6,11 +6,17 @@ Attention routes through ``ops.attention.dot_product_attention``; the
 paged decode path through ``ops.paged_attention.paged_decode_attention``,
 which launches the CUDA paged-decode kernel on the card.
 
-This slice carries what GPT-2 serving runs: float32, pre-LN, causal
-multi-head attention. Not in it, and refused when asked for:
-mixture-of-experts MLPs, rematerialisation and sequence parallelism; the
-contiguous (non-paged) KV cache. GQA, RoPE, post-LN, masks and other
-dtypes land with the models that use them (ROADMAP.md queue 1).
+Compute dtype follows flax's ``dtype=``: parameters stay float32, and
+each module casts its parameters and inputs to ``dtype`` where it uses
+them (``dense``: inputs, kernel and bias in ``dtype``; ``layer_norm``:
+float32 statistics and affine, output in ``dtype``; GELU in ``dtype``).
+``torch.autocast`` is not used: its casting rules differ from flax's.
+
+This port carries what GPT-2 serving and training run: pre-LN, causal
+multi-head attention, float32 or bfloat16. Not in it, and refused when
+asked for: mixture-of-experts MLPs, rematerialisation and sequence
+parallelism; the contiguous (non-paged) KV cache. GQA, RoPE, post-LN and
+masks land with the models that use them (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -58,9 +64,26 @@ def normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None
         param.copy_(cpu)
 
 
-def tied_head_logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
-    """LM-head logits against a tied (V, D) embedding matrix."""
-    return torch.matmul(x, embedding.t())
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to
+    ``dtype``, the product in ``dtype``."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=...)``: statistics and the affine map in
+    float32, the result cast to ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(dtype)
+
+
+def tied_head_logits(x: torch.Tensor, embedding: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """LM-head logits against a tied (V, D) embedding matrix: operands in
+    ``dtype``, float32 accumulation and float32 logits, never rounded to
+    ``dtype`` on the way (the JAX package's ``preferred_element_type``)."""
+    return torch.matmul(x.to(dtype).float(), embedding.to(dtype).float().t())
 
 
 class MultiHeadAttention(nn.Module):
@@ -83,6 +106,7 @@ class MultiHeadAttention(nn.Module):
         *,
         causal: bool = False,
         use_flash: Optional[bool] = None,
+        dtype: torch.dtype = torch.float32,
         decode: bool = False,
         paged_num_blocks: int = 0,
         paged_block_size: int = 16,
@@ -96,6 +120,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads, self.head_dim = num_heads, head_dim
         self.causal = causal
         self.use_flash = use_flash
+        self.dtype = dtype
         self.decode = decode
         self.paged_num_blocks = paged_num_blocks
         self.paged_block_size = paged_block_size
@@ -131,9 +156,10 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, *, page_table=None, row_lens=None):
         batch, seq = x.shape[0], x.shape[1]
         shape = (batch, seq, self.num_heads, self.head_dim)
-        q = self.q(x).reshape(shape)
-        k = self.k(x).reshape(shape)
-        v = self.v(x).reshape(shape)
+        dt = self.dtype
+        q = dense(self.q, x, dt).reshape(shape)
+        k = dense(self.k, x, dt).reshape(shape)
+        v = dense(self.v, x, dt).reshape(shape)
         if self.decode:
             if page_table is None or row_lens is None:
                 raise ValueError(
@@ -144,7 +170,7 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(
                 q, k, v, causal=self.causal, use_flash=self.use_flash,
             )
-        return self.o(out.reshape(batch, seq, self.num_heads * self.head_dim))
+        return dense(self.o, out.reshape(batch, seq, -1), dt)
 
     def _paged_step(self, q, k, v, table, lens):
         """Paged-KV attention: ``seq > 1`` is a prefill of fresh rows
@@ -199,12 +225,14 @@ class MultiHeadAttention(nn.Module):
 
 class MlpBlock(nn.Module):
     """Position-wise feed-forward: up -> tanh GELU (flax ``nn.gelu``'s
-    default) -> down."""
+    default) -> down, all in ``dtype``."""
 
-    def __init__(self, mlp_dim: int, model_dim: int):
+    def __init__(self, mlp_dim: int, model_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.up = nn.Linear(model_dim, mlp_dim)
         self.down = nn.Linear(mlp_dim, model_dim)
+        self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for lin in (self.up, self.down):
@@ -212,7 +240,8 @@ class MlpBlock(nn.Module):
             nn.init.zeros_(lin.bias)
 
     def forward(self, x):
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        h = F.gelu(dense(self.up, x, self.dtype), approximate="tanh")
+        return dense(self.down, h, self.dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -226,12 +255,14 @@ class TransformerBlock(nn.Module):
         mlp_dim: int,
         *,
         layer_norm_epsilon: float = 1e-5,
+        dtype: torch.dtype = torch.float32,
         **attn_kw,
     ):
         super().__init__()
+        self.dtype = dtype
         self.attn = MultiHeadAttention(num_heads, head_dim, model_dim,
-                                       **attn_kw)
-        self.mlp = MlpBlock(mlp_dim, model_dim)
+                                       dtype=dtype, **attn_kw)
+        self.mlp = MlpBlock(mlp_dim, model_dim, dtype)
         self.ln1 = nn.LayerNorm(model_dim, eps=layer_norm_epsilon)
         self.ln2 = nn.LayerNorm(model_dim, eps=layer_norm_epsilon)
 
@@ -242,9 +273,10 @@ class TransformerBlock(nn.Module):
             ln.reset_parameters()
 
     def forward(self, x, *, page_table=None, row_lens=None):
-        x = x + self.attn(self.ln1(x), page_table=page_table,
+        dt = self.dtype
+        x = x + self.attn(layer_norm(self.ln1, x, dt), page_table=page_table,
                           row_lens=row_lens)
-        return x + self.mlp(self.ln2(x))
+        return x + self.mlp(layer_norm(self.ln2, x, dt))
 
 
 class TransformerStack(nn.Module):

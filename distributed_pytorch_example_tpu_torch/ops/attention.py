@@ -7,16 +7,31 @@ the public functions so tests compare like with like.
 The plain path is ``_plain_attention``, the JAX package's
 ``_xla_attention`` in torch: float32 softmax, ``finfo(float32).min``
 masking, GQA by repeating kv heads, and zeroed dead rows under
-``kv_mask``. The JAX package leaves this work to XLA, so plain matmuls
-are the counterpart here. The flash kernel (K1) is not ported yet.
+``kv_mask``. The flash path is ``ops.flash_attention.flash_attention``,
+whose CUDA kernels (K1) are the port of the TPU's Pallas flash kernel.
+The dispatch rule is the JAX package's with "on TPU" read as "on a CUDA
+tensor": a CPU tensor takes the plain path, as JAX off the TPU takes XLA.
+
+The JAX package also has a head-major "fused projection layout"
+(``fused_layout_eligible`` / ``_fused_layout_attention``) that saves XLA
+a transpose around its (B, N, S, H) kernel. The port's kernel reads the
+(B, S, N, H) projections through their strides, so there is no transpose
+to avoid and no counterpart here; the q/k/v/o parameter names are the
+same either way.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
+
+from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+    HEAD_DIMS,
+    flash_attention,
+)
 
 
 def _plain_attention(
@@ -76,17 +91,92 @@ def dot_product_attention(
 
     Args:
       mask: optional boolean mask broadcastable to (B, N, Q, K); True=attend.
-      kv_mask: optional (B, K) key-padding validity; True=attend.
+        General masks take the plain path (flash does not stream them).
+      kv_mask: optional (B, K) key-padding validity; True=attend. The flash
+        kernel takes it.
       causal: apply a causal mask (decoder LM).
-      use_flash: ``True`` asks for the flash kernel, which this port does
-        not have yet and refuses; ``None``/``False`` take the plain path.
+      use_flash: force (True/False) or auto-select (None) the flash kernel.
     """
-    if use_flash:
-        raise NotImplementedError(
-            "use_flash=True: the flash-attention kernel (K1, "
-            "ops/pallas/flash_attention.py) is not ported yet; see "
-            "ROADMAP.md queue 2, K1"
-        )
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+
+    if use_flash is None:
+        # flash only where the kernel serves the shapes natively; a
+        # misaligned sequence (ViT's 197 tokens) takes the plain path, as
+        # in JAX, where lane-padding it into flash measured slower
+        use_flash = _flash_unsupported_reason(q, k, v, mask, causal) is None
+    elif use_flash:
+        reason = _flash_unsupported_reason(q, k, v, mask, causal)
+        if reason is not None:
+            if _only_seq_misaligned(q, k, v, mask, causal):
+                # explicit opt-in: serve seq % 128 != 0 by padding (pad
+                # keys masked out, pad-query outputs sliced off; their
+                # cotangents are zero, so grads stay exact)
+                return _flash_lane_padded(q, k, v, kv_mask, causal,
+                                          softmax_scale)
+            # forced flash must not silently degrade: say why it cannot
+            raise ValueError(
+                f"use_flash=True but the flash kernel does not support this "
+                f"call: {reason}. Use use_flash=None to auto-select."
+            )
+    if use_flash:
+        return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                               softmax_scale=softmax_scale)
     return _plain_attention(q, k, v, mask, kv_mask, causal, softmax_scale)
+
+
+def _only_seq_misaligned(q, k, v, mask, causal) -> bool:
+    """True when sequence alignment is the ONLY flash blocker (self-
+    attention with seq % 128 != 0) — the case padding can serve."""
+    seq_q, seq_k = q.shape[1], k.shape[1]
+    if seq_q != seq_k or seq_q % 128 == 0:
+        return False
+    padded = seq_q + (-seq_q % 128)
+    probe = SimpleNamespace(shape=(q.shape[0], padded, *q.shape[2:]),
+                            dtype=q.dtype, is_cuda=q.is_cuda)
+    kprobe = SimpleNamespace(shape=(k.shape[0], padded, *k.shape[2:]))
+    return _flash_unsupported_reason(probe, kprobe, kprobe, mask,
+                                     causal) is None
+
+
+def _flash_lane_padded(q, k, v, kv_mask, causal, softmax_scale):
+    """Flash on a sequence padded to a multiple of 128: pad keys masked,
+    pad queries discarded. Exact for the real positions (fully-padded rows
+    emit zero output and zero gradients — the kernel's kv_mask contract).
+    Reached only through an explicit ``use_flash=True``."""
+    seq = q.shape[1]
+    pad = -seq % 128
+    valid = (torch.ones(q.shape[0], seq, dtype=torch.bool, device=q.device)
+             if kv_mask is None else kv_mask.bool())
+    mask_p = torch.nn.functional.pad(valid, (0, pad))
+
+    def pad_seq(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+
+    out = flash_attention(pad_seq(q), pad_seq(k), pad_seq(v), causal=causal,
+                          kv_mask=mask_p, softmax_scale=softmax_scale)
+    return out[:, :seq]
+
+
+def _flash_unsupported_reason(q, k, v, mask, causal) -> Optional[str]:
+    """None if the flash kernel can serve this call, else a human reason."""
+    if mask is not None:
+        return "custom masks are not implemented in the flash kernel"
+    seq_q, seq_k, head_dim = q.shape[1], k.shape[1], q.shape[-1]
+    if causal and seq_q != seq_k:
+        # flash causal masking is top-left (row >= col) aligned; the plain
+        # path is bottom-right aligned — they agree only for seq_q == seq_k
+        return f"causal with seq_q != seq_k ({seq_q} != {seq_k})"
+    if q.shape[2] % k.shape[2]:
+        return (
+            f"q heads {q.shape[2]} not a multiple of kv heads {k.shape[2]}"
+        )
+    if not q.is_cuda:
+        return "flash kernel is CUDA-only"
+    if seq_q % 128 or seq_k % 128:
+        return f"seq lengths ({seq_q}, {seq_k}) not multiples of 128"
+    if head_dim not in HEAD_DIMS:
+        return f"head_dim {head_dim} not in {HEAD_DIMS}"
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        return f"dtype {q.dtype} not in (float32, bfloat16)"
+    return None

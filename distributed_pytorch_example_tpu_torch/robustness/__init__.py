@@ -1,4 +1,5 @@
-"""Robustness: bounded retries and the serving fault-injection hooks."""
+"""Robustness: bounded retries, the serving fault-injection hooks, and the
+training loop's bad-step budget error."""
 
 from distributed_pytorch_example_tpu_torch.robustness import chaos
 from distributed_pytorch_example_tpu_torch.robustness.retry import (
@@ -6,4 +7,16 @@ from distributed_pytorch_example_tpu_torch.robustness.retry import (
     with_retries,
 )
 
-__all__ = ["backoff_schedule", "chaos", "with_retries"]
+
+class BadStepBudgetExceeded(RuntimeError):
+    """Nonfinite-step skips exhausted ``max_bad_steps``.
+
+    Raised by the Trainer when the step has skipped more nonfinite updates
+    than the budget allows and there is no checkpoint to roll back to: the
+    fault is persistent — diverged optimization, bad data, a real numerics
+    bug — and retrying further would only burn card time.
+    """
+
+
+__all__ = ["BadStepBudgetExceeded", "backoff_schedule", "chaos",
+           "with_retries"]

@@ -1,4 +1,4 @@
-"""Runtime: device resolution and rank-tagged logging."""
+"""Runtime: device resolution, rank-tagged logging and the process group."""
 
 from distributed_pytorch_example_tpu_torch.runtime.device import resolve_device
 from distributed_pytorch_example_tpu_torch.runtime.logging import (

@@ -1,0 +1,150 @@
+"""Command-line configuration (the part of the JAX package's
+utils/config.py that the training slice serves).
+
+Flags keep the JAX package's names and defaults, with one exception:
+``--checkpoint-dir`` defaults to ``""`` (no checkpoints) until the
+checkpoint format lands (ROADMAP.md queue 1). The JAX package's other
+flags are accepted by name so that a JAX command line parses, and
+:func:`check_unserved` refuses any of them set away from its default.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+# flag -> the JAX package's default: set to anything else, the port refuses
+UNSERVED = {
+    "augment": "none",
+    "augment_workers": 0,
+    "token_dtype": "uint16",
+    "image_size": 32,
+    "auto_mesh": False,
+    "mesh_data": -1,
+    "mesh_fsdp": 1,
+    "mesh_tensor": 1,
+    "mesh_sequence": 1,
+    "sp_mode": None,
+    "mesh_expert": 1,
+    "mesh_pipe": 1,
+    "pipe_microbatches": 0,
+    "pipe_schedule": "gpipe",
+    "pipe_virtual": 1,
+    "pipe_no_recompute": False,
+    "pad_token_id": None,
+    "moe_experts": 0,
+    "moe_every": 2,
+    "moe_top_k": None,
+    "partition": "dp",
+    "remat": False,
+    "data_dir": None,
+    "profile_dir": None,
+    "profile_steps": "10,13",
+    "checkpoint_format": "auto",
+    "metrics_file": None,
+    "telemetry_every": 0,
+    "save_every_steps": 0,
+    "grad_accum": 1,
+    "zero1": False,
+    "wire": "none",
+    "wire_block": 256,
+    "wire_stochastic": False,
+    "wire_param_gather": "float32",
+    "overlap_buckets": 0,
+    "shard_cache_mb": 0,
+    "checkpoint_retain": 3,
+    "publish_dir": None,
+    "chaos": None,
+}
+
+
+def add_reference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The reference's flags and defaults (train.py:214-219)."""
+    parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--batch-size", type=int, default=64,
+                        help="PER-REPLICA batch size (reference semantics); "
+                        "global batch = batch-size * number of processes")
+    parser.add_argument("--lr", type=float, default=0.001)
+    parser.add_argument("--num-samples", type=int, default=10000)
+    parser.add_argument("--checkpoint-dir", type=str, default="",
+                        help="checkpoints are not ported yet: the default "
+                        "is '' (none), and a directory is refused")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="a missing path trains from scratch "
+                        "(reference parity); an existing one is refused "
+                        "until checkpoints are ported")
+    return parser
+
+
+def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The framework flags this slice serves."""
+    parser.add_argument("--model", type=str, default="mlp",
+                        help="mlp|gpt2 (resnet18|resnet50|vit-b16|bert-base "
+                        "are not ported yet)")
+    parser.add_argument("--dataset", type=str, default="synthetic",
+                        help="synthetic|synthetic-tokens")
+    parser.add_argument("--seq-len", type=int, default=512)
+    parser.add_argument("--num-classes", type=int, default=10)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--log-every", type=int, default=10,
+                        help="batches between rank-0 progress logs "
+                        "(reference train.py:144)")
+    parser.add_argument("--lm-loss", type=str, default="fused",
+                        choices=("fused", "dense"),
+                        help="fused = chunked vocab cross-entropy, no "
+                        "materialized (B,S,V) f32 logits; dense = full "
+                        "logits")
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype (parameters stay float32)")
+    parser.add_argument("--flash", type=str, default="auto",
+                        choices=("auto", "on", "off"),
+                        help="flash attention kernel: auto-select, force, "
+                        "or disable")
+    parser.add_argument("--optimizer", type=str, default="adam",
+                        choices=("adam", "adamw", "sgd", "lamb", "adafactor"),
+                        help="reference default: adam (train.py:249); lamb "
+                        "and adafactor are not ported yet")
+    parser.add_argument("--schedule", type=str, default="constant",
+                        choices=("constant", "cosine", "linear"))
+    parser.add_argument("--warmup-steps", type=int, default=0)
+    parser.add_argument("--weight-decay", type=float, default=0.0)
+    parser.add_argument("--grad-clip", type=float, default=None,
+                        help="global-norm gradient clipping threshold")
+    parser.add_argument("--max-bad-steps", type=int, default=8,
+                        help="nonfinite steps skipped before the run fails; "
+                        "0 disables the budget")
+    parser.add_argument("--no-skip-nonfinite", action="store_true",
+                        help="apply the optimizer update even when gradients "
+                        "are nonfinite")
+    parser.add_argument("--no-telemetry", action="store_true",
+                        help="accepted for JAX parity; the port has no "
+                        "telemetry scope yet")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default; raises without a card) or cpu")
+    return parser
+
+
+def add_unserved_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The JAX package's remaining flags, by name and default, so that a
+    JAX command line parses; :func:`check_unserved` refuses them."""
+    for name, default in UNSERVED.items():
+        flag = "--" + name.replace("_", "-")
+        if default is False:
+            parser.add_argument(flag, action="store_true",
+                                help=argparse.SUPPRESS)
+        else:
+            kind = type(default) if default is not None else str
+            parser.add_argument(flag, type=kind, default=default,
+                                help=argparse.SUPPRESS)
+    return parser
+
+
+def check_unserved(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` on any flag of :data:`UNSERVED` set away from its
+    default."""
+    for name, default in UNSERVED.items():
+        if getattr(args, name) != default:
+            parser.error(
+                f"--{name.replace('_', '-')} is not ported to the PyTorch "
+                "package yet; see ROADMAP.md queue 1"
+            )

@@ -17,6 +17,7 @@ import distributed_pytorch_example_tpu_torch as port
 from distributed_pytorch_example_tpu_torch.models import GPT2
 from distributed_pytorch_example_tpu_torch.serve import main as serve_main
 from distributed_pytorch_example_tpu_torch.serving import InferenceEngine
+from distributed_pytorch_example_tpu_torch.train import main as train_main
 
 torch.set_num_threads(2)
 
@@ -46,6 +47,7 @@ def _imported_roots(path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(pathlib.Path(port.__file__).parent.rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
+              ROOT / "scripts" / "profile_torch_train.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
     for path in files:
@@ -73,6 +75,8 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         InferenceEngine(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--epochs", "1", "--num-samples", "64"])
     # device="cpu" is the explicit way onto the CPU
     engine = InferenceEngine(model, device="cpu")
     assert engine.device == torch.device("cpu")
@@ -92,3 +96,11 @@ def test_engine_refuses_out_of_slice_options():
             call()
     with pytest.raises(SystemExit):
         serve_main(["--family", "llama", "--device", "cpu"])
+
+
+def test_train_cli_refuses_flags_outside_the_slice():
+    for argv in (["--zero1"], ["--mesh-tensor", "2"], ["--model", "resnet18"],
+                 ["--checkpoint-dir", "/tmp/ck"], ["--optimizer", "lamb"],
+                 ["--model", "gpt2", "--dataset", "synthetic"]):
+        with pytest.raises(SystemExit):
+            train_main(argv + ["--device", "cpu"])

@@ -1,4 +1,5 @@
-"""GPT-2 weights cross between the JAX package and the port bit for bit."""
+"""GPT-2 and SimpleNet weights cross between the JAX package and the port
+bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -6,8 +7,9 @@ import numpy as np
 import torch
 
 from distributed_pytorch_example_tpu.models.gpt2 import GPT2 as JaxGPT2
+from distributed_pytorch_example_tpu.models.mlp import SimpleNet as JaxSimpleNet
 from distributed_pytorch_example_tpu_torch import interop
-from distributed_pytorch_example_tpu_torch.models import GPT2
+from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
 
 torch.set_num_threads(2)
 
@@ -51,3 +53,17 @@ def test_seeded_init_is_device_independent_and_flax_shaped():
     # flax's initialisers: zero biases, unit LayerNorm scales
     assert torch.count_nonzero(a.decoder.layers[0].attn.q.bias) == 0
     assert torch.all(a.final_ln.weight == 1)
+
+
+def test_simplenet_roundtrip_is_bit_exact():
+    params = JaxSimpleNet().init(jax.random.key(0),
+                                 jnp.zeros((1, 784)))["params"]
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = SimpleNet(device="cpu")
+    model.load_state_dict(interop.simplenet_flax_to_state_dict(tree),
+                          strict=True)
+    back = interop.simplenet_state_dict_to_flax(model.state_dict())
+    assert back.keys() == tree.keys() == {"Dense_0", "Dense_1", "Dense_2"}
+    for name in tree:
+        for leaf in ("kernel", "bias"):
+            np.testing.assert_array_equal(back[name][leaf], tree[name][leaf])
