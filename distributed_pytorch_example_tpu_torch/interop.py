@@ -16,6 +16,12 @@ Any name -> tensor mapping shaped like a ``state_dict`` maps the same way,
 so :func:`grads_of` carries a model's gradients to the flax tree of the
 JAX package's ``jax.grad``, leaf by leaf.
 
+:func:`flax_leaves` lists a model's parameters under their flax paths,
+in the order ``jax.tree_util.tree_leaves`` walks the JAX tree (paths
+sorted), with the view that turns each into its JAX layout: the wire
+layer (``parallel/wire.py``) lays out tiles, buckets and quantization
+blocks exactly as the JAX package does.
+
 Both directions copy values exactly, so a round trip is bit-exact. This
 module imports neither JAX nor the JAX package: the tree is plain nested
 dicts of numpy arrays (``jax.device_get`` of the flax params).
@@ -23,7 +29,8 @@ dicts of numpy arrays (``jax.device_get`` of the flax params).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+from typing import Dict, List, Mapping, Tuple
 
 from torch import nn
 
@@ -124,3 +131,58 @@ def grads_of(model: nn.Module) -> Dict[str, torch.Tensor]:
     :func:`simplenet_state_dict_to_flax`."""
     return {name: p.grad for name, p in model.named_parameters()
             if p.grad is not None}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxLeaf:
+    """One parameter under its flax path. ``transposed``: the JAX leaf is
+    the parameter transposed (a ``Dense`` kernel is (in, out), a
+    ``Linear.weight`` (out, in))."""
+
+    path: Tuple[str, ...]
+    name: str
+    transposed: bool
+
+    @property
+    def key(self) -> str:
+        """The path as one string, ``decoder/layer_0/attn/q/kernel``."""
+        return "/".join(self.path)
+
+    def to_jax(self, t: torch.Tensor) -> torch.Tensor:
+        """This parameter (or its gradient) in the JAX layout: a view."""
+        return t.t() if self.transposed else t
+
+    from_jax = to_jax  # a transpose is its own inverse
+
+
+_ATTRS = {
+    nn.Linear: {"weight": ("kernel", True), "bias": ("bias", False)},
+    nn.LayerNorm: {"weight": ("scale", False), "bias": ("bias", False)},
+    nn.Embedding: {"weight": ("embedding", False)},
+}
+
+
+def flax_leaves(model: nn.Module) -> List[FlaxLeaf]:
+    """The model's parameters in the JAX tree's leaf order (sorted flax
+    paths): ``decoder.layers.<i>`` is ``decoder/layer_<i>``, a
+    ``Linear``'s weight its transposed ``kernel``, a ``LayerNorm``'s
+    weight its ``scale``, an ``Embedding``'s weight its ``embedding``,
+    and a bare parameter keeps its name (GPT-2's ``wpe``)."""
+    modules = dict(model.named_modules())
+    leaves = []
+    for name, _ in model.named_parameters():
+        owner, _, attr = name.rpartition(".")
+        path: List[str] = []
+        parts = owner.split(".") if owner else []
+        i = 0
+        while i < len(parts):
+            if parts[i] == "layers" and i + 1 < len(parts):
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        leaf, transposed = _ATTRS.get(type(modules[owner]), {}).get(
+            attr, (attr, False))
+        leaves.append(FlaxLeaf(tuple(path) + (leaf,), name, transposed))
+    return sorted(leaves, key=lambda leaf: leaf.path)

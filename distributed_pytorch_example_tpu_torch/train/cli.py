@@ -11,7 +11,12 @@ attention runs the flash kernels forward and backward.
 
 More than one process (``REPLICAS`` > 1, see runtime/distributed.py)
 gives data parallelism: each process takes its shard of the global batch
-and the gradients are averaged across processes every step.
+and the gradients are averaged across processes every step. ``--zero1``
+shards the optimizer state across the processes, ``--wire`` compresses the
+gradient collectives, ``--overlap-buckets`` fuses them into buckets (on
+the card, the ring kernels carry them), and ``--grad-accum k`` applies the
+optimizer every k-th step to the mean of k steps' gradients (the JAX CLI's
+``optax.MultiSteps``).
 ``--device cpu`` runs on the CPU; the default, ``cuda``, raises without a
 card. Flags of the JAX CLI that this slice does not serve are refused.
 """
@@ -29,6 +34,13 @@ from distributed_pytorch_example_tpu_torch.data import (
     SyntheticTokenDataset,
 )
 from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
+from distributed_pytorch_example_tpu_torch.parallel import (
+    WireConfig,
+    data_parallel,
+)
+from distributed_pytorch_example_tpu_torch.parallel.wire import (
+    DEFAULT_BUCKET_BYTES,
+)
 from distributed_pytorch_example_tpu_torch.robustness import (
     BadStepBudgetExceeded,
 )
@@ -115,6 +127,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     world = dist.process_count()
+    if args.grad_accum < 1:
+        parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
     global_batch = args.batch_size * world
     logger.info("Starting distributed training with %d processes on %s "
                 "(process %d)", world, device, config.process_id)
@@ -134,10 +148,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     optimizer = make_optimizer(
         model.parameters(), args.optimizer, args.lr,
         schedule=args.schedule, warmup_steps=args.warmup_steps,
-        total_steps=max(1, args.epochs * len(train_loader)),
+        # the schedule advances once per OPTIMIZER step; with accumulation
+        # that is every k-th step
+        total_steps=max(1, args.epochs * len(train_loader) // args.grad_accum),
         weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip,
+        every_k=args.grad_accum,
     )
-    trainer = Trainer(model, task, optimizer, log_every=args.log_every,
+    partitioner = data_parallel(
+        world, dp_shard_opt_state=args.zero1,
+        wire=WireConfig(
+            compress=args.wire, block_size=args.wire_block,
+            stochastic_rounding=args.wire_stochastic,
+            param_gather=args.wire_param_gather,
+            bucket_bytes=(DEFAULT_BUCKET_BYTES if args.overlap_buckets < 0
+                          else args.overlap_buckets),
+        ),
+    )
+    trainer = Trainer(model, task, optimizer, partitioner=partitioner,
+                      log_every=args.log_every, seed=args.seed,
                       max_bad_steps=args.max_bad_steps,
                       skip_nonfinite=not args.no_skip_nonfinite)
     try:

@@ -13,6 +13,8 @@ Behavioural parity with the reference's ``main()`` orchestration
   JAX package's wording ("Epoch %d completed", "Throughput: %.1f
   samples/sec", "Train Loss", "Best validation accuracy");
 - a cross-process barrier per epoch (train.py:310);
+- ZeRO-1 and the wire layer through ``partitioner`` (``parallel/``), and
+  in-step gradient accumulation (``grad_accum_steps``), both in the step;
 - graft-armor's bad-step budget: non-finite steps are skipped in the step
   (train/step.py) and counted at log boundaries; more than
   ``max_bad_steps`` raises :class:`BadStepBudgetExceeded` (there is no
@@ -32,9 +34,11 @@ from typing import Dict, List, Optional
 
 import torch
 
+from distributed_pytorch_example_tpu_torch import interop
 from distributed_pytorch_example_tpu_torch.models.transformer import (
     _not_in_slice,
 )
+from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.robustness import (
     BadStepBudgetExceeded,
 )
@@ -62,29 +66,69 @@ class Trainer:
         task,
         optimizer: Optimizer,
         *,
+        partitioner=None,
         checkpoint_dir: Optional[str] = None,
         log_every: int = 10,
+        seed: int = 0,
         max_bad_steps: int = 8,
         skip_nonfinite: bool = True,
+        grad_accum_steps: int = 1,
     ):
         if checkpoint_dir:
             raise _not_in_slice("checkpoints")
+        if grad_accum_steps < 1:
+            raise ValueError(
+                f"grad_accum_steps must be >= 1, got {grad_accum_steps}"
+            )
         self.model = model
         self.task = task
         self.optimizer = optimizer
+        self.partitioner = partitioner
         self.log_every = log_every
         self.max_bad_steps = max_bad_steps
-        self.train_step = build_train_step(task,
-                                           skip_nonfinite=skip_nonfinite)
+        self.grad_accum_steps = grad_accum_steps
+        self.train_step = build_train_step(
+            task, partitioner=partitioner, grad_accum_steps=grad_accum_steps,
+            skip_nonfinite=skip_nonfinite, seed=seed,
+        )
         self.eval_step = build_eval_step(task)
         self.state = TrainState(step=0, model=model, optimizer=optimizer)
         self.recovery: Dict[str, int] = {"bad_steps": 0}
         self._pending_bad: List[torch.Tensor] = []
 
     def init(self) -> TrainState:
-        """Log the parameter count; the model is built with its weights."""
+        """Log the parameter count and, under a partitioner, the analytic
+        gradient-sync wire bytes and the bucket plan (the JAX loop's
+        graft-wire lines); the model is built with its weights."""
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Model parameters: %s", f"{n_params:,}")
+        self.wire_report = None
+        if self.partitioner is None:
+            return self.state
+        wire = self.partitioner.wire or wirelib.WireConfig()
+        named = dict(self.model.named_parameters())
+        shapes = {leaf.key: tuple(leaf.to_jax(named[leaf.name]).shape)
+                  for leaf in interop.flax_leaves(self.model)}
+        self.wire_report = wirelib.grad_wire_report(shapes, self.partitioner,
+                                                    wire)
+        if wire.compress != "none":
+            logger.info(
+                "graft-wire: %s block=%d — grad sync %s B/step/device "
+                "(fp32 %s, ratio %.2fx)", wire.compress, wire.block_size,
+                f"{self.wire_report['grad_wire_bytes_per_step']:,}",
+                f"{self.wire_report['grad_wire_bytes_per_step_fp32']:,}",
+                self.wire_report["wire_compression_ratio"],
+            )
+        if wire.bucketed:
+            if self.partitioner.dp_shard_opt_state:
+                dims = self.partitioner.zero1_dims(shapes)
+            else:
+                dims = dict.fromkeys(shapes)
+            plan = wirelib.plan_buckets(list(dims.values()),
+                                        list(shapes.values()), wire,
+                                        self.partitioner.world)
+            logger.info("graft-wire: %d buckets (%s B target)",
+                        len(plan.buckets), f"{wire.bucket_bytes:,}")
         return self.state
 
     # -- epochs -----------------------------------------------------------

@@ -1,36 +1,55 @@
-"""The train and eval steps (the JAX package's train/step.py), replicated
-data parallelism only.
+"""The train and eval steps (the JAX package's train/step.py).
 
-A train step is forward, loss, backward, then — with more than one process
-— an explicit all-reduce mean of the gradients (the reference's DDP
-semantics, train.py:233,138: each process holds a full replica and its
-shard of the global batch; local gradients are d(local mean loss), so
-their cross-process mean is the gradient of the global mean loss), then
-the optimizer update.
+A train step is forward, loss, backward, then the gradient sync, then the
+optimizer update. Local gradients are d(local mean loss), so their
+cross-process mean is the gradient of the global mean loss (the
+reference's DDP semantics, train.py:233,138).
 
-The non-finite skip (JAX's graft-armor predication): when any synced
-gradient is NaN or Inf, the update is skipped, so parameters, moments and
-the schedule position stay exactly as they were, and ``bad_step`` reports
-1.0. JAX takes that branch inside the compiled step; here the decision
-reads one device scalar on the host per step, the step's only sync (the
-metrics stay on the device).
+Two sync paths, chosen as the JAX step chooses between its automatic and
+manual data modes:
 
-ZeRO-1, wire compression, in-step gradient accumulation, pipelines and
-the sentinel metrics are not in this slice and raise.
+- **replicated** (no partitioner, or one with nothing to do by hand): one
+  flat all-reduce mean of every gradient;
+- **manual** (a partitioner with ZeRO-1, ``grad_accum_steps > 1``, int8
+  wire compression or bucketing): every gradient collective goes through
+  one ``parallel/wire.py`` ``sync_grads`` call, on the leaves in the JAX
+  layout and order, scaled by ``1 / (world * grad_accum_steps)``. With
+  ZeRO-1 the large leaves reduce-scatter to this rank's tile, the
+  optimizer updates the tiles (``train/optimizers.py`` ``ShardedUpdate``)
+  and the updated tiles gather back into the parameters.
+
+``grad_accum_steps = N`` runs N microbatches (contiguous slices of the
+local batch) before the one sync, accumulating float32 gradients (the
+parameters are float32, so their ``.grad`` is); metrics are the mean over
+microbatches.
+
+The non-finite skip (JAX's graft-armor predication): when the global
+gradient norm is NaN or Inf, the update is skipped, so parameters,
+moments and the schedule position stay as they were, and ``bad_step``
+reports 1.0. JAX takes that branch inside the compiled step; here the
+decision reads one device scalar on the host per step, the step's only
+sync, and the ring collectives' error words are read right after it, so a
+ring wait that timed out raises before any update.
+
+Pipelines and the sentinel metrics are not in this slice and raise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from distributed_pytorch_example_tpu_torch.models.transformer import (
     _not_in_slice,
 )
+from distributed_pytorch_example_tpu_torch.ops import collectives
+from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.runtime import distributed
-from distributed_pytorch_example_tpu_torch.train.optimizers import global_norm
+from distributed_pytorch_example_tpu_torch.train.optimizers import (
+    ShardedUpdate,
+    global_norm,
+)
 from distributed_pytorch_example_tpu_torch.train.state import TrainState
 
 
@@ -40,7 +59,7 @@ def _all_reduce_mean_grads(grads) -> None:
     if world == 1 or not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    distributed.all_reduce_sum_(flat)
     flat.div_(world)
     offset = 0
     for g in grads:
@@ -59,6 +78,35 @@ def _mean_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return dict(zip(names, packed.unbind()))
 
 
+def _microbatches(batch, n: int):
+    """Split every batch leaf (B, ...) into n contiguous (B/n, ...)."""
+    for key, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(
+                f"grad_accum_steps={n} must divide the per-process batch "
+                f"size {x.shape[0]} (batch leaf {key!r} of shape "
+                f"{tuple(x.shape)})"
+            )
+    return [{k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def _backward(task, model, batch, n: int) -> Dict[str, torch.Tensor]:
+    """Forward + backward over ``n`` microbatches; the gradients sum into
+    ``.grad``, the metrics are their mean."""
+    if n == 1:
+        loss, metrics = task.compute_loss(model, batch, train=True)
+        loss.backward()
+        return metrics
+    per = []
+    for mb in _microbatches(batch, n):
+        loss, metrics = task.compute_loss(model, mb, train=True)
+        loss.backward()
+        per.append(metrics)
+    return {k: torch.stack([m[k].float() for m in per]).mean()
+            for k in per[0]}
+
+
 def build_train_step(
     task,
     *,
@@ -66,39 +114,81 @@ def build_train_step(
     grad_accum_steps: int = 1,
     sentinels: bool = False,
     skip_nonfinite: bool = True,
-    wire=None,
+    wire: Optional[wirelib.WireConfig] = None,
+    seed: int = 0,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """One optimization step: ``step(state, batch) -> metrics``; updates
-    ``state`` in place."""
-    if partitioner is not None:
-        raise _not_in_slice("partitioners (ZeRO-1, FSDP, TP)")
-    if wire is not None:
-        raise _not_in_slice("wire compression")
-    if grad_accum_steps != 1:
-        raise _not_in_slice("in-step gradient accumulation")
+    ``state`` in place. ``wire`` defaults to the partitioner's, else
+    float32 payloads; ``seed`` seeds the wire quantizer's stochastic
+    rounding (one generator per step and rank)."""
+    if grad_accum_steps < 1:
+        raise ValueError(
+            f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     if sentinels:
         raise _not_in_slice("the sentinel metrics")
+    if wire is None:
+        wire = getattr(partitioner, "wire", None) or wirelib.WireConfig()
+    manual = partitioner is not None and (
+        partitioner.dp_shard_opt_state or grad_accum_steps > 1
+        or wire.compress != "none" or wire.bucketed
+    )
+    updates: Dict[int, ShardedUpdate] = {}
+
+    def sharded(state: TrainState) -> ShardedUpdate:
+        key = id(state.optimizer)
+        if key not in updates:
+            updates[key] = ShardedUpdate(
+                state.model, state.optimizer, partitioner,
+                distributed.process_index(), distributed.process_count())
+        return updates[key]
+
+    def manual_sync(state: TrainState) -> torch.Tensor:
+        """ONE sync_grads call for every gradient collective; returns the
+        global gradient norm."""
+        update = sharded(state)
+        world = distributed.process_count()
+        generator = None
+        if wire.stochastic_rounding and wire.compress != "none":
+            device = update.params[0].device
+            generator = torch.Generator(device=device).manual_seed(
+                (seed * 1_000_003 + state.step) * 4099
+                + distributed.process_index())
+        synced = wirelib.sync_grads(
+            update.local_grads(), update.dims, config=wire,
+            generator=generator, scale=1.0 / (world * grad_accum_steps))
+        update.set_grads(synced)
+        return update.global_norm()
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, optimizer = state.model, state.optimizer
         model.train()
+        if manual:
+            sharded(state)  # rebinds the optimizer before its first use
+        # the model's own grads too: under ZeRO-1 the optimizer holds the
+        # tiles, not the sharded parameters
+        model.zero_grad(set_to_none=True)
         optimizer.zero_grad()
-        loss, metrics = task.compute_loss(model, batch, train=True)
-        loss.backward()
-        grads = [p.grad for p in optimizer.params if p.grad is not None]
-        _all_reduce_mean_grads(grads)
-        metrics = _mean_metrics(metrics)
-        if skip_nonfinite:
-            norm = global_norm(grads)
-            ok = torch.isfinite(norm)
-            if bool(ok):
-                optimizer.step(grad_norm=norm)
-            metrics = {**metrics, "bad_step": 1.0 - ok.float()}
+        metrics = _mean_metrics(_backward(task, model, batch,
+                                          grad_accum_steps))
+        if manual:
+            norm = manual_sync(state)
         else:
-            optimizer.step()
+            grads = [p.grad for p in optimizer.params if p.grad is not None]
+            _all_reduce_mean_grads(grads)
+            if grad_accum_steps > 1:
+                torch._foreach_div_(grads, float(grad_accum_steps))
+            norm = global_norm(grads) if grads else torch.zeros(())
+        ok = torch.isfinite(norm)
+        apply = not skip_nonfinite or bool(ok)
+        collectives.check_rings()  # a ring wait that timed out raises here
+        if apply and optimizer.step(grad_norm=norm) and manual:
+            sharded(state).replicate(wire)
+        if skip_nonfinite:
+            metrics = {**metrics, "bad_step": 1.0 - ok.float()}
         state.step += 1
         return metrics
 
+    train_step.sharded = sharded  # the ZeRO-1 / wire update, for checks
     return train_step
 
 

@@ -43,13 +43,6 @@ UNSERVED = {
     "metrics_file": None,
     "telemetry_every": 0,
     "save_every_steps": 0,
-    "grad_accum": 1,
-    "zero1": False,
-    "wire": "none",
-    "wire_block": 256,
-    "wire_stochastic": False,
-    "wire_param_gather": "float32",
-    "overlap_buckets": 0,
     "shard_cache_mb": 0,
     "checkpoint_retain": 3,
     "publish_dir": None,
@@ -110,6 +103,35 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--weight-decay", type=float, default=0.0)
     parser.add_argument("--grad-clip", type=float, default=None,
                         help="global-norm gradient clipping threshold")
+    parser.add_argument("--grad-accum", type=int, default=1,
+                        help="accumulate k micro-steps per optimizer step")
+    parser.add_argument("--zero1", action="store_true",
+                        help="ZeRO-1: shard optimizer state over the "
+                        "processes (reduce-scattered grads + parameter "
+                        "re-replication; parallel/api.py)")
+    parser.add_argument("--wire", type=str, default="none",
+                        choices=("none", "int8-block"),
+                        help="gradient-collective compression: int8-block "
+                        "= int8 payloads with per-block bf16 scales "
+                        "(parallel/wire.py)")
+    parser.add_argument("--wire-block", type=int, default=256,
+                        help="elements per bf16 scale block for --wire "
+                        "int8-block")
+    parser.add_argument("--wire-stochastic", action="store_true",
+                        help="stochastic rounding in the wire quantizer "
+                        "(unbiased gradient mean; default round-to-nearest)")
+    parser.add_argument("--wire-param-gather", type=str, default="float32",
+                        choices=("float32", "bf16", "int8-block"),
+                        help="payload of the ZeRO-1 parameter "
+                        "re-replication gather; float32 keeps master "
+                        "weights exact")
+    parser.add_argument("--overlap-buckets", type=int, default=0,
+                        metavar="BYTES",
+                        help=">0: fused bucketed gradient sync, leaves "
+                        "packed into ~BYTES of fp32 per bucket (reverse "
+                        "leaf order), one collective per bucket (on the "
+                        "card: the ring kernels); -1 = the default 4 MiB; "
+                        "0 = one collective per leaf")
     parser.add_argument("--max-bad-steps", type=int, default=8,
                         help="nonfinite steps skipped before the run fails; "
                         "0 disables the budget")

@@ -270,3 +270,174 @@ def test_gpt2_train_step_runs_the_flash_kernels(card):
         scale = max(want.abs().max().item(), 1e-3)
         err = (grads["cuda"][name] - want).abs().max().item()
         assert err <= 1e-4 * scale, (name, err, scale)
+
+
+# -- K3: the ring collectives, with in-process ranks -------------------------
+
+
+def ring_group(world, timeout_s=10.0):
+    from distributed_pytorch_example_tpu_torch.ops.collectives import PeerRing
+
+    rings = PeerRing.local_group(world, "cuda", timeout_s=timeout_s)
+    return rings, [torch.cuda.Stream() for _ in range(world)]
+
+
+def close_group(rings):
+    torch.cuda.synchronize()
+    for ring in rings:
+        ring.close()
+
+
+# (world, elements per rank): one piece per direction, and a payload of
+# several 1 MiB staging pieces per direction (the kernels' chunking)
+RING_CASES = [(2, 512), (4, 2048), (8, 256 * 8), (2, 3 << 20), (4, 3 << 18)]
+
+
+@pytest.mark.parametrize("world,n", RING_CASES,
+                         ids=[f"R{w}-n{n}" for w, n in RING_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["fp32", "bf16", "int8"])
+def test_ring_kernels_match_plain_versions(card, world, n, dtype):
+    """K3a equals the plain gather exactly (it moves bytes); K3b is within
+    chip_smoke's float32 rounding bound of the plain float32 sum."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_all_gather_reference,
+        ring_reduce_scatter,
+        ring_reduce_scatter_reference,
+    )
+
+    rings, streams = ring_group(world)
+    try:
+        xs = chip_smoke.ring_inputs(torch, world, n, dtype, seed=n + world)
+        ag0 = ring_all_gather.launches
+        got = chip_smoke.ring_run(torch, ring_all_gather, rings, xs, streams)
+        want = ring_all_gather_reference(xs)
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        assert ring_all_gather.launches == ag0 + world
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if dtype == torch.int8:
+            return
+        rs0 = ring_reduce_scatter.launches
+        got = chip_smoke.ring_run(torch, ring_reduce_scatter, rings, xs,
+                                  streams)
+        want = ring_reduce_scatter_reference(xs)
+        tols = chip_smoke.ring_rs_bound(torch, xs, world)
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        assert ring_reduce_scatter.launches == rs0 + world
+        for g, w, t in zip(got, want, tols):
+            assert g.shape == (n // world,) and g.dtype == dtype
+            assert bool(((g.float() - w.float()).abs() <= t).all())
+    finally:
+        close_group(rings)
+
+
+def test_ring_kernels_stay_right_over_calls_of_changing_size(card):
+    """Twelve gathers and twelve reduce-scatters in flight back to back on
+    every rank, cycling through sizes whose pieces split unevenly (a
+    staging slot is reused with other offsets each call), each result
+    held against its plain version."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_all_gather_reference,
+        ring_reduce_scatter,
+        ring_reduce_scatter_reference,
+    )
+
+    world = 4
+    sizes = [(1 << 20) + 256 * world, 5 * 256 * world, (3 << 18) + 512 * world]
+    rings, streams = ring_group(world)
+    try:
+        calls = []
+        for i in range(12):
+            xs = chip_smoke.ring_inputs(torch, world, sizes[i % 3],
+                                        torch.float32, seed=i)
+            ag = chip_smoke.ring_run(torch, ring_all_gather, rings, xs,
+                                     streams)
+            rs = chip_smoke.ring_run(torch, ring_reduce_scatter, rings, xs,
+                                     streams)
+            calls.append((xs, ag, rs))
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        for i, (xs, ag, rs) in enumerate(calls):
+            for g, w in zip(ag, ring_all_gather_reference(xs)):
+                assert torch.equal(g, w), i
+            tols = chip_smoke.ring_rs_bound(torch, xs, world)
+            for g, w, t in zip(rs, ring_reduce_scatter_reference(xs), tols):
+                assert bool(((g - w).abs() <= t).all()), i
+    finally:
+        close_group(rings)
+
+
+def test_ring_wait_times_out_when_a_rank_never_launches(card):
+    """Rank 1 never launches: rank 0's kernel gives up after its bounded
+    wait, records the error and returns; check() raises. The ring is dead
+    afterwards: its next launch returns at once and check() raises again."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+    )
+
+    rings, _ = ring_group(2, timeout_s=0.2)
+    try:
+        x = torch.ones(512, device="cuda")
+        ring_all_gather(x, rings[0])
+        torch.cuda.synchronize()
+        with pytest.raises(RuntimeError, match="timed out"):
+            rings[0].check()
+        rings[1].check()  # the rank that never launched has no error
+        ring_all_gather(x, rings[0])
+        torch.cuda.synchronize()
+        with pytest.raises(RuntimeError, match="timed out"):
+            rings[0].check()
+    finally:
+        close_group(rings)
+
+
+def test_ring_stream_ids_in_flight_at_once_do_not_cross(card):
+    """Two gathers and two reduce-scatters of distinct stream ids in
+    flight at once, issued in opposite orders on the two ranks, each id
+    on its own CUDA stream: every result is its own collective's."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_all_gather_reference,
+        ring_reduce_scatter,
+        ring_reduce_scatter_reference,
+    )
+
+    world, n = 2, 1 << 16
+    rings, _ = ring_group(world)
+    try:
+        ops = [(ring_all_gather, ring_all_gather_reference, 0),
+               (ring_all_gather, ring_all_gather_reference, 1),
+               (ring_reduce_scatter, ring_reduce_scatter_reference, 0),
+               (ring_reduce_scatter, ring_reduce_scatter_reference, 1)]
+        inputs = [chip_smoke.ring_inputs(torch, world, n, torch.float32,
+                                         seed=10 + i) for i in range(len(ops))]
+        streams = [[torch.cuda.Stream() for _ in ops] for _ in range(world)]
+        main = torch.cuda.current_stream()
+        got = [[None] * world for _ in ops]
+        for rank in range(world):
+            order = range(len(ops)) if rank == 0 else reversed(range(len(ops)))
+            for i in order:
+                fn, _, sid = ops[i]
+                stream = streams[rank][i]
+                stream.wait_stream(main)
+                with torch.cuda.stream(stream):
+                    got[i][rank] = fn(inputs[i][rank], rings[rank],
+                                      stream=sid)
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        for i, (_, ref, _) in enumerate(ops):
+            want = ref(inputs[i])
+            for rank in range(world):
+                # a two-term float32 sum is the same in either order
+                assert torch.equal(got[i][rank], want[rank]), (i, rank)
+    finally:
+        close_group(rings)

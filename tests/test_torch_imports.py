@@ -48,6 +48,8 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted(pathlib.Path(port.__file__).parent.rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
               ROOT / "scripts" / "profile_torch_train.py",
+              ROOT / "scripts" / "probe_peer_ipc.py",
+              ROOT / "scripts" / "ring_nvlink.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
     for path in files:
@@ -99,7 +101,7 @@ def test_engine_refuses_out_of_slice_options():
 
 
 def test_train_cli_refuses_flags_outside_the_slice():
-    for argv in (["--zero1"], ["--mesh-tensor", "2"], ["--model", "resnet18"],
+    for argv in (["--save-every-steps", "5"], ["--mesh-tensor", "2"], ["--model", "resnet18"],
                  ["--checkpoint-dir", "/tmp/ck"], ["--optimizer", "lamb"],
                  ["--model", "gpt2", "--dataset", "synthetic"]):
         with pytest.raises(SystemExit):

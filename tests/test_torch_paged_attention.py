@@ -136,7 +136,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library("paged_decode")
-    assert _build.sources() == ["flash_attention", "paged_decode"]
+    assert _build.sources() == ["flash_attention", "paged_decode",
+                                "ring_collectives"]
 
 
 def test_find_nvcc_looks_at_cuda_home(monkeypatch, tmp_path):

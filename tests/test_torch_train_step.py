@@ -311,7 +311,7 @@ def test_refused_options_raise():
     with pytest.raises(NotImplementedError, match="checkpoints"):
         Trainer(model, ClassificationTask(), opt, checkpoint_dir="/tmp/x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(ClassificationTask(), grad_accum_steps=2)
+        build_train_step(ClassificationTask(), sentinels=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_optimizer(model.parameters(), "lamb")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
