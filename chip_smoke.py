@@ -345,6 +345,27 @@ def flash_errors(torch, got, ref):
     return errs
 
 
+def sdpa_backend(torch, fn):
+    """Which of SDPA's backends ``fn`` ran, read from the names of the
+    CUDA kernels one call launched under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    low = " ".join(names).lower()
+    kinds = [kind for kind, keys in (
+        ("cudnn", ("cudnn",)), ("flash", ("flash",)),
+        ("mem-efficient", ("fmha", "efficient", "mem_eff")),
+    ) if any(key in low for key in keys)]
+    top = ", ".join(n[:60] for n in names[:4])
+    return f"{'/'.join(kinds) or 'unknown'} (kernels: {top})"
+
+
 def check_flash(torch, bandwidth):
     """K1 against its plain versions on the card, then its timing at the
     training path's shape (B=16, N=12, S=1024, H=64, bf16, causal)."""
@@ -418,12 +439,17 @@ def check_flash(torch, bandwidth):
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    # SDPA's backward alone: its forward stays outside the timed window
+    sdpa_out = sdpa(qt, kt, vt, is_causal=True)
 
-    def sdpa_fwd_bwd():
-        qt.grad = kt.grad = vt.grad = None
-        out = sdpa(qt, kt, vt, is_causal=True)
-        out.backward(dot)
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
 
+    for kind, fn in (("forward", lambda: sdpa(qt, kt, vt, is_causal=True)),
+                     ("backward", sdpa_bwd)):
+        say("kernel", f"SDPA {kind} backend at the training shape: "
+                      + sdpa_backend(torch, fn))
     ms = {}
     # plain, kernel, kernel, plain: keep the comparison inside one call
     for label, fn, iters in (
@@ -438,7 +464,7 @@ def check_flash(torch, bandwidth):
         ("bwd_plain2", lambda: flash_attention_bwd_reference(
             q, k, v, o, lse, do, **args), 5),
         ("sdpa_fwd", lambda: sdpa(qt, kt, vt, is_causal=True), 20),
-        ("sdpa_fwd_bwd", sdpa_fwd_bwd, 20),
+        ("sdpa_bwd", sdpa_bwd, 20),
     ):
         ms[label] = time_cold(torch, fn, iters=iters)
     elem = B * S * N * H * 2  # bytes of one bf16 (B, S, N, H) tensor
@@ -458,13 +484,13 @@ def check_flash(torch, bandwidth):
         ops_ms = flops / _BF16_PEAK * 1e3
         kernel_ms = min(ms[kind], ms[kind + "2"])
         plain_ms = min(ms[kind + "_plain"], ms[kind + "_plain2"])
-        library_ms = ms["sdpa_fwd"] if kind == "fwd" else ms["sdpa_fwd_bwd"]
+        library_ms = ms["sdpa_" + kind]
         say("kernel", f"flash_attention_{kind} bf16 causal B={B} N={N} S={S} "
                       f"H={H}: kernel {ms[kind]:.4f}/{ms[kind + '2']:.4f} ms, "
                       f"plain {ms[kind + '_plain']:.4f}/"
                       f"{ms[kind + '_plain2']:.4f} ms, library "
                       f"{library_ms:.4f} ms (SDPA "
-                      f"{'forward' if kind == 'fwd' else 'forward + backward'}"
+                      f"{'forward' if kind == 'fwd' else 'backward alone'}"
                       f"), bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} "
                       f"bytes, {flops} flops)")
         entries.append({

@@ -23,29 +23,44 @@
 // (B, S, N, H) projections are read in place with no transpose. lse and
 // delta are (B, N, Sq) float32.
 //
-// Design. A TPU grid walks k blocks in order on one core and carries
-// m/l/acc in VMEM; CUDA blocks run in parallel and in no order. So:
-//   - forward: one CTA per (q tile, head, batch) loops over k tiles up to
-//     the diagonal, with the online-softmax state m, l and the output
-//     accumulator in float32 shared memory;
-//   - backward, two deterministic kernels and no atomics (the TPU's
-//     `_bwd_split`): dq with one CTA per (q tile, head, batch) looping over
-//     k tiles; dk/dv with one CTA per (k tile, kv head, batch) looping over
-//     the group's query heads and their q tiles, which sums the GQA group in
-//     place. delta = rowsum(dO * O) comes from a small kernel first.
-// The products run on the tensor cores for bf16 (nvcuda::wmma 16x16x16,
-// float32 accumulators) and as float32 FMAs for float32. Tiles are 64 rows,
-// or 32 where 64 would not fit the 227 KB of shared memory (bf16 at head_dim
-// 256, float32 at 128 and 256); above 48 KB the launch asks for dynamic
-// shared memory with cudaFuncSetAttribute.
-//
 // Bound on this card: attention at GPT-2's shapes (S = 1024, H = 64) does
 // 2*S*H flops per query per product against 8*H bytes of q/k/v/o per row,
 // far above the H100's ~295 flop/byte ridge, so the bf16 tensor-core rate
-// (989 TFLOP/s) bounds it. This first version is far from that: wmma goes
-// through shared memory, every tile waits on its loads (no cp.async/TMA
-// pipeline), and the causal diagonal leaves CTAs unbalanced. wgmma, TMA and
-// warp specialisation come in a later version (ROADMAP.md, queue 2).
+// (989 TFLOP/s) bounds it.
+//
+// bf16 design (the training path). A TPU grid walks k blocks in order on one
+// core and carries m/l/acc in VMEM; CUDA blocks run in parallel and in no
+// order, so each CTA loops over the tiles it needs itself:
+//   - every product is mma.sync.m16n8k16 (bf16 in, float32 accumulators in
+//     registers). A warp owns 16 rows of the output tile; operands come from
+//     shared memory by ldmatrix (ldmatrix.trans where the product needs the
+//     tile transposed), and an accumulator's register layout is the A
+//     operand's layout of the next product, so S -> P -> P.V and
+//     dS -> dS.K never leave registers. Tiles in shared memory are
+//     row-major with their 16-byte chunks XOR-swizzled by row, so the eight
+//     rows one ldmatrix phase reads sit in eight different bank groups;
+//   - the streamed tiles (K/V in the forward and dq kernels, Q/dO/lse/delta
+//     in the dk/dv kernel) pass through a two-stage ring filled by
+//     cp.async.cg: tile j+1 is in flight while tile j computes;
+//   - forward: one CTA per (head, batch, 128-row q tile); scale, masks, the
+//     online-softmax max and sum (quad shuffles along a fragment row) and
+//     the rescale of O happen in registers; O is divided by l at the end and
+//     leaves through the warp's own rows of the Q tile in shared memory with
+//     16-byte stores. Causal q tiles run heaviest first, masks are evaluated
+//     only on tiles that straddle the diagonal, and a warp whose 16 rows all
+//     precede a tile skips it;
+//   - backward, the TPU's `_bwd_split` (deterministic, no atomics):
+//     the dq kernel (one CTA per q tile) first writes delta = rowsum(dO * O)
+//     for its own rows, then recomputes S and dP per k tile and accumulates
+//     dQ += dS.K in registers; the dk/dv kernel (one CTA per k tile of a kv
+//     head, launched after dq on the same stream, so delta is complete)
+//     computes S^T = K.Q^T and dP^T = V.dO^T directly, so P^T and dS^T are
+//     already the A operands of dV += P^T.dO and dK += dS^T.Q, and walks the
+//     GQA group's heads and q tiles with dK/dV in registers;
+//   - head_dim 256 halves the row tiles; its dk/dv warps split the head
+//     dimension of dK/dV in two (both halves recompute S^T and dP^T).
+// The float32 path (off the main path) keeps the first design: one CTA of
+// 256 threads per tile, float32 FMAs through shared memory.
 //
 // Contract: no allocation, no synchronisation, launches on the caller's
 // stream; each C entry returns cudaGetLastError() (or cudaErrorInvalidValue
@@ -53,165 +68,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Tile geometry. Row pitches are padded by 16 bytes (T tiles) or 4 floats
-// (float tiles): rows stay 16-byte aligned for vector loads and wmma, and
-// neighbouring rows start in different shared-memory banks.
-template <typename T, int H>
-struct Cfg {
-  static constexpr int kTile =
-      sizeof(T) == 2 ? (H <= 128 ? 64 : 32) : (H <= 64 ? 64 : 32);
-  static constexpr int kPad = 16 / (int)sizeof(T);
-  static constexpr int kLd = H + kPad;       // T tiles of H columns
-  static constexpr int kLdP = kTile + kPad;  // T tiles of kTile columns
-  static constexpr int kLdS = kTile + 4;     // float tiles of kTile columns
-  static constexpr int kLdO = H + 4;         // float tiles of H columns
-};
-
-__host__ __device__ constexpr size_t align128(size_t b) {
-  return (b + 127) & ~size_t(127);
-}
-
-__device__ __forceinline__ char* carve(char*& p, size_t bytes) {
-  char* r = p;
-  p += align128(bytes);
-  return r;
-}
-
-template <typename T, int H>
-constexpr size_t fwd_smem() {
-  using C = Cfg<T, H>;
-  return 3 * align128(sizeof(T) * C::kTile * C::kLd) +
-         align128(sizeof(float) * C::kTile * C::kLdS) +
-         align128(sizeof(T) * C::kTile * C::kLdP) +
-         align128(sizeof(float) * C::kTile * C::kLdO) +
-         4 * align128(sizeof(float) * C::kTile);
-}
-
-template <typename T, int H>
-constexpr size_t dq_smem() {
-  using C = Cfg<T, H>;
-  return 4 * align128(sizeof(T) * C::kTile * C::kLd) +
-         2 * align128(sizeof(float) * C::kTile * C::kLdS) +
-         align128(sizeof(T) * C::kTile * C::kLdP) +
-         align128(sizeof(float) * C::kTile * C::kLdO) +
-         3 * align128(sizeof(float) * C::kTile);
-}
-
-template <typename T, int H>
-constexpr size_t dkv_smem() {
-  using C = Cfg<T, H>;
-  return 4 * align128(sizeof(T) * C::kTile * C::kLd) +
-         2 * align128(sizeof(float) * C::kTile * C::kLdS) +
-         2 * align128(sizeof(T) * C::kTile * C::kLdP) +
-         2 * align128(sizeof(float) * C::kTile * C::kLdO) +
-         3 * align128(sizeof(float) * C::kTile);
-}
-
-// rows x H tile from global (row r at src + r * row_stride) into shared
-// memory with pitch LD, 16 bytes per thread per step.
-template <typename T, int H, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int rows) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  constexpr int kPerRow = H / kVec;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kVec;
-    *reinterpret_cast<uint4*>(dst + r * LD + c) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-  }
-}
-
-// C[M x N] (float, pitch ldc) = (or +=, with ACC) A[M x K] * B[K x N], all
-// operands in shared memory. A(i, k) is A[k * lda + i] when A_COL, else
-// A[i * lda + k]; B(k, j) is B[j * ldb + k] when B_COL, else B[k * ldb + j].
-// Every thread of the CTA calls it; the caller synchronises around it.
-template <typename T, int M, int N, int K, bool A_COL, bool B_COL, bool ACC>
-__device__ __forceinline__ void tile_mma(const T* A, int lda, const T* B,
-                                         int ldb, float* C, int ldc) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using ALayout = typename std::conditional<A_COL, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_COL, wmma::col_major,
-                                              wmma::row_major>::type;
-    constexpr int kFn = N / 16;
-    constexpr int kFrags = (M / 16) * kFn;
-    const int warp = threadIdx.x / 32;
-    for (int f = warp; f < kFrags; f += kWarps) {
-      const int i0 = (f / kFn) * 16;
-      const int j0 = (f % kFn) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if constexpr (ACC) {
-        wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(c, 0.f);
-      }
-#pragma unroll 4
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b;
-        wmma::load_matrix_sync(a, A_COL ? A + k0 * lda + i0 : A + i0 * lda + k0,
-                               lda);
-        wmma::load_matrix_sync(b, B_COL ? B + j0 * ldb + k0 : B + k0 * ldb + j0,
-                               ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = threadIdx.x; e < M * N; e += kThreads) {
-      const int i = e / N;
-      const int j = e - i * N;
-      float s = ACC ? C[i * ldc + j] : 0.f;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        s += to_f(A_COL ? A[k * lda + i] : A[i * lda + k]) *
-             to_f(B_COL ? B[j * ldb + k] : B[k * ldb + j]);
-      }
-      C[i * ldc + j] = s;
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, w));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
-  return x;
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // strides in elements, [batch, seq, head] per tensor
 struct Strides {
@@ -235,44 +100,810 @@ struct Args {
   float scale;
 };
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)bytes)
+             : cudaSuccess;
+}
+
+// ===========================================================================
+// bf16: register-resident tensor-core tiles
+// ===========================================================================
+
+// Row tile of every bf16 kernel at this head_dim; sequence lengths divide by
+// it (each kernel's own tiles below divide it).
+constexpr int bf16_tile(int head_dim) { return head_dim <= 128 ? 128 : 64; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Element offset of (r, c) in a row-major tile of width H: the 16-byte chunk
+// c / 8 of row r sits at chunk (c / 8) ^ (r % 8).
+template <int H>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * H + ((((c >> 3) ^ (r & 7))) << 3) + (c & 7);
+}
+
+// ROWS x H tile from global (row r at src + r * stride) into a swizzled
+// shared tile, 16 bytes per cp.async; NT threads share the work.
+template <int H, int ROWS, int NT>
+__device__ __forceinline__ void load_async(bf16* dst, const bf16* src,
+                                           long long stride) {
+  constexpr int kChunks = H / 8;
+  static_assert(ROWS * kChunks % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    cp_async16(dst + swz<H>(r, c), src + r * stride + c);
+  }
+}
+
+// s (16 x N) += A[a_row .. a_row + 16) . B[0 .. N)^T: A and B are swizzled
+// row-major shared tiles of width H, contracted over H. Per warp.
+template <int H, int N>
+__device__ __forceinline__ void mma_abt(float (&s)[N / 8][4], const bf16* A,
+                                        int a_row, const bf16* B, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, A + swz<H>(a_row + (lane & 15), kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int nn = 0; nn < N / 16; ++nn) {
+      uint32_t bf[4];
+      ldsm_x4(bf, B + swz<H>(nn * 16 + (lane & 7) + ((lane >> 4) << 3),
+                             kk * 16 + ((lane >> 3) & 1) * 8));
+      mma16816(s[2 * nn], af, bf[0], bf[1]);
+      mma16816(s[2 * nn + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// o (16 x D) += bf16(p) (16 x K) . B[0 .. K)[d0 .. d0 + D): p is a float
+// accumulator tile of mma_abt (its layout is the A operand's once packed),
+// B a swizzled row-major shared tile of width H read transposed. Per warp.
+template <int H, int K, int D>
+__device__ __forceinline__ void mma_pb(float (&o)[D / 8][4],
+                                       const float (&p)[K / 8][4],
+                                       const bf16* B, int d0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t af[4] = {
+        pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+        pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]),
+    };
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, B + swz<H>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                               d0 + dn * 16 + (lane >> 4) * 8));
+      mma16816(o[2 * dn], af, bf[0], bf[1]);
+      mma16816(o[2 * dn + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// Write a warp's 16 x H float accumulator (rows row0.., times inv per row
+// half) as bf16 through the warp's own rows of the swizzled tile stage, then
+// to global with 16-byte stores. The caller has finished reading those rows.
+template <int H>
+__device__ __forceinline__ void store_rows(const float (&acc)[H / 8][4],
+                                           const float (&inv)[2], bf16* stage,
+                                           int row0, bf16* dst,
+                                           long long stride, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < H / 8; ++dt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<uint32_t*>(stage + swz<H>(row0 + g + 8 * h,
+                                                  dt * 8 + 2 * t)) =
+          pack_bf16(acc[dt][2 * h] * inv[h], acc[dt][2 * h + 1] * inv[h]);
+    }
+  }
+  __syncwarp();
+  constexpr int kChunks = H / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    *reinterpret_cast<uint4*>(dst + (long long)r * stride + c) =
+        *reinterpret_cast<const uint4*>(stage + swz<H>(row0 + r, c));
+  }
+}
+
+// forward -------------------------------------------------------------------
+
+template <int H>
+struct Fwd16 {
+  static constexpr int kBr = bf16_tile(H);        // q rows per CTA, 16 a warp
+  static constexpr int kBc = H <= 128 ? 64 : 16;  // keys per streamed tile
+  static constexpr int kThreads = kBr / 16 * 32;
+  // Q, then two stages of K, then two of V
+  static constexpr size_t kSmem = sizeof(bf16) * (kBr + 4 * kBc) * H;
+  static constexpr int kMinBlocks = H == 64 ? 2 : 1;
+};
+
+template <int H>
+__global__ void __launch_bounds__(Fwd16<H>::kThreads, Fwd16<H>::kMinBlocks)
+    flash_fwd_bf16_kernel(Args a) {
+  using F = Fwd16<H>;
+  constexpr int kBr = F::kBr, kBc = F::kBc, kNT = F::kThreads;
+  extern __shared__ __align__(128) char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kBr * H;
+  bf16* sV = sK + 2 * kBc * H;
+
+  const int n = blockIdx.x, b = blockIdx.y;
+  // causal: the last q tiles have the most k tiles; start them first
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * kBr;
+  const int kvh = n / (a.heads / a.kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int n_kt =
+      a.causal ? min(a.seq_k, q0 + kBr) / kBc : a.seq_k / kBc;
+
+  load_async<H, kBr, kNT>(
+      sQ, static_cast<const bf16*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h,
+      a.sq.s);
+  load_async<H, kBc, kNT>(sK, kg, a.sk.s);
+  load_async<H, kBc, kNT>(sV, vg, a.sv.s);
+  cp_commit();
+
+  const float sl2 = a.scale * kLog2e;  // logits in log2 units for ex2
+  const float* mrow = a.mask ? a.mask + (long long)b * a.seq_k : nullptr;
+  float o[H / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) {
+      const int st = (j + 1) & 1;
+      const long long k1 = (long long)(j + 1) * kBc;
+      load_async<H, kBc, kNT>(sK + st * kBc * H, kg + k1 * a.sk.s, a.sk.s);
+      load_async<H, kBc, kNT>(sV + st * kBc * H, vg + k1 * a.sv.s, a.sv.s);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = j * kBc;
+    // a warp whose rows all precede this tile's keys has nothing to add
+    if (!(a.causal && k0 > q0 + wr + 15)) {
+      const bf16* tK = sK + (j & 1) * kBc * H;
+      const bf16* tV = sV + (j & 1) * kBc * H;
+      float s[kBc / 8][4] = {};
+      mma_abt<H, kBc>(s, sQ, wr, tK, lane);
+      const bool diag = a.causal && k0 + kBc - 1 > q0 + wr;
+      const int r0 = q0 + wr + g;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kBc / 8; ++nt) {
+        const int c = k0 + nt * 8 + 2 * t;
+        float2 mk = make_float2(1.f, 1.f);
+        if (mrow) mk = *reinterpret_cast<const float2*>(mrow + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool masked = (diag && c + (e & 1) > r0 + (e >> 1) * 8) ||
+                              !(((e & 1) ? mk.y : mk.x) > 0.f);
+          s[nt][e] = masked ? kNegInf : s[nt][e] * sl2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        alpha[h] = exp2_fast(m[h] - m_new);
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kBc / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp2_fast(s[nt][e] - m[e >> 1]);
+          rs[e >> 1] += s[nt][e];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+      for (int dt = 0; dt < H / 8; ++dt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
+      }
+      mma_pb<H, kBc, H>(o, s, tV, 0, lane);
+    }
+    __syncthreads();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv[h] = m[h] == kNegInf ? 0.f : 1.f / (l[h] == 0.f ? 1.f : l[h]);
+  }
+  store_rows<H>(o, inv, sQ, wr,
+                static_cast<bf16*>(a.out) + b * a.so.b +
+                    (long long)(q0 + wr) * a.so.s + n * a.so.h,
+                a.so.s, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ll = l[h] == 0.f ? 1.f : l[h];
+      a.lse[((long long)b * a.heads + n) * a.seq_q + q0 + wr + g + 8 * h] =
+          m[h] == kNegInf ? kNegInf : (m[h] + log2f(ll)) * kLn2;
+    }
+  }
+}
+
+// backward: dq (and delta) -------------------------------------------------
+
+template <int H>
+struct Dq16 {
+  static constexpr int kBr = bf16_tile(H);
+  static constexpr int kBc = H == 64 ? 64 : (H == 128 ? 32 : 16);
+  static constexpr int kThreads = kBr / 16 * 32;
+  // Q, dO, two stages of K, two of V, delta
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (2 * kBr + 4 * kBc) * H + sizeof(float) * kBr;
+};
+
+template <int H>
+__global__ void __launch_bounds__(Dq16<H>::kThreads)
+    flash_dq_bf16_kernel(Args a) {
+  using F = Dq16<H>;
+  constexpr int kBr = F::kBr, kBc = F::kBc, kNT = F::kThreads;
+  extern __shared__ __align__(128) char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + kBr * H;
+  bf16* sK = sDO + kBr * H;
+  bf16* sV = sK + 2 * kBc * H;
+  float* sDelta = reinterpret_cast<float*>(sV + 2 * kBc * H);
+
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * kBr;
+  const int kvh = n / (a.heads / a.kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const long long row0 = ((long long)b * a.heads + n) * a.seq_q + q0;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int n_kt =
+      a.causal ? min(a.seq_k, q0 + kBr) / kBc : a.seq_k / kBc;
+
+  load_async<H, kBr, kNT>(
+      sQ, static_cast<const bf16*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h,
+      a.sq.s);
+  load_async<H, kBr, kNT>(sDO,
+                          static_cast<const bf16*>(a.dout) + b * a.sdo.b +
+                              q0 * a.sdo.s + n * a.sdo.h,
+                          a.sdo.s);
+  load_async<H, kBc, kNT>(sK, kg, a.sk.s);
+  load_async<H, kBc, kNT>(sV, vg, a.sv.s);
+  cp_commit();
+
+  // delta = rowsum(dO * O) for this tile's rows, two threads a row; the
+  // dk/dv kernel reads it after this kernel
+  {
+    static_assert(kNT == 2 * kBr, "two threads per row");
+    const int r = threadIdx.x / 2, part = threadIdx.x % 2;
+    const bf16* orow = static_cast<const bf16*>(a.o) + b * a.so.b +
+                       (long long)(q0 + r) * a.so.s + n * a.so.h;
+    const bf16* drow = static_cast<const bf16*>(a.dout) + b * a.sdo.b +
+                       (long long)(q0 + r) * a.sdo.s + n * a.sdo.h;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = part * 8; c < H; c += 16) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]);
+        const float2 df = __bfloat1622float2(d2[e]);
+        acc += of.x * df.x + of.y * df.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      sDelta[r] = acc;
+      a.delta[row0 + r] = acc;
+    }
+  }
+  __syncthreads();
+  float dl[2], lse2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    dl[h] = sDelta[wr + g + 8 * h];
+    lse2[h] = a.lse[row0 + wr + g + 8 * h] * kLog2e;
+  }
+
+  const float sl2 = a.scale * kLog2e;
+  const float* mrow = a.mask ? a.mask + (long long)b * a.seq_k : nullptr;
+  float dq[H / 8][4] = {};
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) {
+      const int st = (j + 1) & 1;
+      const long long k1 = (long long)(j + 1) * kBc;
+      load_async<H, kBc, kNT>(sK + st * kBc * H, kg + k1 * a.sk.s, a.sk.s);
+      load_async<H, kBc, kNT>(sV + st * kBc * H, vg + k1 * a.sv.s, a.sv.s);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = j * kBc;
+    if (!(a.causal && k0 > q0 + wr + 15)) {
+      const bf16* tK = sK + (j & 1) * kBc * H;
+      const bf16* tV = sV + (j & 1) * kBc * H;
+      float s[kBc / 8][4] = {}, dp[kBc / 8][4] = {};
+      mma_abt<H, kBc>(s, sQ, wr, tK, lane);
+      mma_abt<H, kBc>(dp, sDO, wr, tV, lane);
+      const bool diag = a.causal && k0 + kBc - 1 > q0 + wr;
+      const int r0 = q0 + wr + g;
+      // p from the saved lse (re-masked: a dead row's lse is NEG_INF), then
+      // ds = p * (dp - delta) * scale
+#pragma unroll
+      for (int nt = 0; nt < kBc / 8; ++nt) {
+        const int c = k0 + nt * 8 + 2 * t;
+        float2 mk = make_float2(1.f, 1.f);
+        if (mrow) mk = *reinterpret_cast<const float2*>(mrow + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool masked = (diag && c + (e & 1) > r0 + 8 * h) ||
+                              !(((e & 1) ? mk.y : mk.x) > 0.f);
+          const float p = masked ? 0.f : exp2_fast(s[nt][e] * sl2 - lse2[h]);
+          s[nt][e] = p * (dp[nt][e] - dl[h]) * a.scale;
+        }
+      }
+      mma_pb<H, kBc, H>(dq, s, tK, 0, lane);
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<H>(dq, one, sQ, wr,
+                static_cast<bf16*>(a.out) + b * a.sdq.b +
+                    (long long)(q0 + wr) * a.sdq.s + n * a.sdq.h,
+                a.sdq.s, lane);
+}
+
+// backward: dk/dv -----------------------------------------------------------
+
+template <int H>
+struct Dkv16 {
+  static constexpr int kBc = bf16_tile(H);        // keys per CTA, 16 a warp
+  static constexpr int kBq = H <= 64 ? 64 : 32;   // q rows per streamed tile
+  static constexpr int kSplit = H <= 128 ? 1 : 2; // warps sharing a key row
+  static constexpr int kGroups = kBc / 16;
+  static constexpr int kThreads = kGroups * kSplit * 32;
+  static constexpr int kHs = H / kSplit;           // dK/dV columns a warp owns
+  // one stage: Q, dO, lse, delta of a q tile
+  static constexpr size_t kStage =
+      sizeof(bf16) * 2 * kBq * H + sizeof(float) * 2 * kBq;
+  static constexpr size_t kSmem = sizeof(bf16) * 2 * kBc * H + 2 * kStage;
+};
+
+template <int H>
+__global__ void __launch_bounds__(Dkv16<H>::kThreads)
+    flash_dkv_bf16_kernel(Args a) {
+  using F = Dkv16<H>;
+  constexpr int kBc = F::kBc, kBq = F::kBq, kNT = F::kThreads, kHs = F::kHs;
+  extern __shared__ __align__(128) char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kBc * H;
+  char* ring = reinterpret_cast<char*>(sV + kBc * H);
+  auto stage_q = [&](int st) {
+    return reinterpret_cast<bf16*>(ring + st * F::kStage);
+  };
+  auto stage_f = [&](int st) {  // lse then delta, kBq floats each
+    return reinterpret_cast<float*>(stage_q(st) + 2 * kBq * H);
+  };
+
+  // k tiles in ascending order: under the causal mask the first have the
+  // most q tiles, so they start first
+  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int group = a.heads / a.kv_heads;
+  const int k0 = kt * kBc;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = (warp % F::kGroups) * 16;   // the warp's first key row
+  const int d0 = (warp / F::kGroups) * kHs;  // its first dK/dV column
+  // causal: q tiles before this k tile see none of its keys
+  const int qt0 = a.causal ? k0 / kBq : 0;
+  const int n_q = max(a.seq_q / kBq - qt0, 0);
+  const int total = group * n_q;  // (head, q tile) pairs, head-major
+
+  auto load_stage = [&](int it, int st) {
+    const int n = kvh * group + it / n_q;
+    const int q0 = (qt0 + it % n_q) * kBq;
+    const long long row0 = ((long long)b * a.heads + n) * a.seq_q + q0;
+    bf16* tQ = stage_q(st);
+    load_async<H, kBq, kNT>(tQ,
+                            static_cast<const bf16*>(a.q) + b * a.sq.b +
+                                (long long)q0 * a.sq.s + n * a.sq.h,
+                            a.sq.s);
+    load_async<H, kBq, kNT>(tQ + kBq * H,
+                            static_cast<const bf16*>(a.dout) + b * a.sdo.b +
+                                (long long)q0 * a.sdo.s + n * a.sdo.h,
+                            a.sdo.s);
+    float* tF = stage_f(st);
+    const int i = threadIdx.x;
+    if (i < kBq / 4) {
+      cp_async16(tF + 4 * i, a.lse + row0 + 4 * i);
+    } else if (i < kBq / 2) {
+      cp_async16(tF + 4 * i, a.delta + row0 + 4 * (i - kBq / 4));
+    }
+  };
+
+  load_async<H, kBc, kNT>(sK,
+                          static_cast<const bf16*>(a.k) + b * a.sk.b +
+                              (long long)k0 * a.sk.s + kvh * a.sk.h,
+                          a.sk.s);
+  load_async<H, kBc, kNT>(sV,
+                          static_cast<const bf16*>(a.v) + b * a.sv.b +
+                              (long long)k0 * a.sv.s + kvh * a.sv.h,
+                          a.sv.s);
+  if (total > 0) load_stage(0, 0);
+  cp_commit();
+
+  bool valid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    valid[h] = !a.mask ||
+               a.mask[(long long)b * a.seq_k + k0 + kw + g + 8 * h] > 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+  float dk[kHs / 8][4] = {}, dv[kHs / 8][4] = {};
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) {
+      load_stage(it + 1, (it + 1) & 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (qt0 + it % n_q) * kBq;
+    // a warp whose keys all follow this tile's queries has nothing to add
+    if (!(a.causal && q0 + kBq - 1 < k0 + kw)) {
+      const bf16* tQ = stage_q(it & 1);
+      const bf16* tDO = tQ + kBq * H;
+      const float* tLse = stage_f(it & 1);
+      const float* tDelta = tLse + kBq;
+      // rows are keys, columns queries: s^T = K.Q^T, dp^T = V.dO^T
+      float s[kBq / 8][4] = {}, dp[kBq / 8][4] = {};
+      mma_abt<H, kBq>(s, sK, kw, tQ, lane);
+      mma_abt<H, kBq>(dp, sV, kw, tDO, lane);
+      const bool diag = a.causal && k0 + kw + 15 > q0;
+      const int r0 = k0 + kw + g;
+#pragma unroll
+      for (int nt = 0; nt < kBq / 8; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        const float2 ls = *reinterpret_cast<const float2*>(tLse + c);
+        const float2 dl = *reinterpret_cast<const float2*>(tDelta + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool masked =
+              (diag && r0 + 8 * h > q0 + c + (e & 1)) || !valid[h];
+          const float p =
+              masked ? 0.f
+                     : exp2_fast(s[nt][e] * sl2 -
+                                 ((e & 1) ? ls.y : ls.x) * kLog2e);
+          s[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - ((e & 1) ? dl.y : dl.x)) * a.scale;
+        }
+      }
+      // dv += p^T . dO ; dk += ds^T . q
+      mma_pb<H, kBq, kHs>(dv, s, tDO, d0, lane);
+      mma_pb<H, kBq, kHs>(dk, dp, tQ, d0, lane);
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();     // the q loop may be empty (causal, seq_q < seq_k)
+  __syncthreads();  // every warp is done with sK and sV
+#pragma unroll
+  for (int dt = 0; dt < kHs / 8; ++dt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = swz<H>(kw + g + 8 * h, d0 + dt * 8 + 2 * t);
+      *reinterpret_cast<uint32_t*>(sK + off) =
+          pack_bf16(dk[dt][2 * h], dk[dt][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(sV + off) =
+          pack_bf16(dv[dt][2 * h], dv[dt][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.sdk.b +
+              (long long)k0 * a.sdk.s + kvh * a.sdk.h;
+  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.sdv.b +
+              (long long)k0 * a.sdv.s + kvh * a.sdv.h;
+  constexpr int kChunks = H / 8;
+  for (int i = threadIdx.x; i < kBc * kChunks; i += kNT) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    *reinterpret_cast<uint4*>(dkg + r * a.sdk.s + c) =
+        *reinterpret_cast<const uint4*>(sK + swz<H>(r, c));
+    *reinterpret_cast<uint4*>(dvg + r * a.sdv.s + c) =
+        *reinterpret_cast<const uint4*>(sV + swz<H>(r, c));
+  }
+}
+
+template <int H>
+int launch_fwd_bf16(const Args& a, cudaStream_t stream) {
+  using F = Fwd16<H>;
+  static const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<H>, F::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.heads, a.batch, a.seq_q / F::kBr);
+  flash_fwd_bf16_kernel<H><<<grid, F::kThreads, F::kSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_bwd_bf16(const Args& a, cudaStream_t stream) {
+  using Q = Dq16<H>;
+  using K = Dkv16<H>;
+  static_assert(bf16_tile(H) % Q::kBc == 0 && bf16_tile(H) % K::kBq == 0,
+                "every bf16 tile divides the sequence tile");
+  static const cudaError_t dq_attr =
+      allow_smem(flash_dq_bf16_kernel<H>, Q::kSmem);
+  static const cudaError_t dkv_attr =
+      allow_smem(flash_dkv_bf16_kernel<H>, K::kSmem);
+  if (dq_attr != cudaSuccess) return (int)dq_attr;
+  if (dkv_attr != cudaSuccess) return (int)dkv_attr;
+  flash_dq_bf16_kernel<H><<<dim3(a.heads, a.batch, a.seq_q / Q::kBr),
+                            Q::kThreads, Q::kSmem, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_dkv_bf16_kernel<H><<<dim3(a.kv_heads, a.batch, a.seq_k / K::kBc),
+                             K::kThreads, K::kSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// [threads, dynamic shared bytes, registers per thread, local (spill)
+// bytes per thread, CTAs per SM] of one bf16 kernel, as the card reports them
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = threads;
+  out[1] = (int)smem;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = blocks;
+  return 0;
+}
+
+template <int H>
+int occupancy_bf16(int which, int* out) {
+  if (which == 0) {
+    return occupancy(flash_fwd_bf16_kernel<H>, Fwd16<H>::kThreads,
+                     Fwd16<H>::kSmem, out);
+  }
+  if (which == 1) {
+    return occupancy(flash_dq_bf16_kernel<H>, Dq16<H>::kThreads,
+                     Dq16<H>::kSmem, out);
+  }
+  return occupancy(flash_dkv_bf16_kernel<H>, Dkv16<H>::kThreads,
+                   Dkv16<H>::kSmem, out);
+}
+
+// ===========================================================================
+// float32: FMAs through shared memory
+// ===========================================================================
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Tile geometry. Row pitches are padded by 4 floats: rows stay 16-byte
+// aligned for vector loads, and neighbouring rows start in different
+// shared-memory banks.
+template <int H>
+struct Cfg {
+  static constexpr int kTile = H <= 64 ? 64 : 32;
+  static constexpr int kLd = H + 4;       // tiles of H columns
+  static constexpr int kLdS = kTile + 4;  // tiles of kTile columns
+};
+
+__host__ __device__ constexpr size_t align128(size_t b) {
+  return (b + 127) & ~size_t(127);
+}
+
+__device__ __forceinline__ float* carve(char*& p, size_t floats) {
+  float* r = reinterpret_cast<float*>(p);
+  p += align128(sizeof(float) * floats);
+  return r;
+}
+
+template <int H>
+constexpr size_t fwd_smem() {
+  using C = Cfg<H>;
+  return 4 * align128(sizeof(float) * C::kTile * C::kLd) +
+         2 * align128(sizeof(float) * C::kTile * C::kLdS) +
+         4 * align128(sizeof(float) * C::kTile);
+}
+
+template <int H>
+constexpr size_t dq_smem() {
+  using C = Cfg<H>;
+  return 5 * align128(sizeof(float) * C::kTile * C::kLd) +
+         3 * align128(sizeof(float) * C::kTile * C::kLdS) +
+         3 * align128(sizeof(float) * C::kTile);
+}
+
+template <int H>
+constexpr size_t dkv_smem() {
+  using C = Cfg<H>;
+  return 6 * align128(sizeof(float) * C::kTile * C::kLd) +
+         4 * align128(sizeof(float) * C::kTile * C::kLdS) +
+         3 * align128(sizeof(float) * C::kTile);
+}
+
+// rows x H tile from global (row r at src + r * row_stride) into shared
+// memory with pitch LD, 16 bytes per thread per step.
+template <int H, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long row_stride, int rows) {
+  constexpr int kPerRow = H / 4;
+  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
+    const int r = i / kPerRow;
+    const int c = (i - r * kPerRow) * 4;
+    *reinterpret_cast<float4*>(dst + r * LD + c) =
+        *reinterpret_cast<const float4*>(src + r * row_stride + c);
+  }
+}
+
+// C[M x N] (pitch ldc) = (or +=, with ACC) A[M x K] * B[K x N], all operands
+// in shared memory. A(i, k) is A[k * lda + i] when A_COL, else A[i * lda +
+// k]; B(k, j) is B[j * ldb + k] when B_COL, else B[k * ldb + j]. Every
+// thread of the CTA calls it; the caller synchronises around it.
+template <int M, int N, int K, bool A_COL, bool B_COL, bool ACC>
+__device__ __forceinline__ void tile_mma(const float* A, int lda,
+                                         const float* B, int ldb, float* C,
+                                         int ldc) {
+  for (int e = threadIdx.x; e < M * N; e += kThreads) {
+    const int i = e / N;
+    const int j = e - i * N;
+    float s = ACC ? C[i * ldc + j] : 0.f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      s += (A_COL ? A[k * lda + i] : A[i * lda + k]) *
+           (B_COL ? B[j * ldb + k] : B[k * ldb + j]);
+    }
+    C[i * ldc + j] = s;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, w));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
+  return x;
+}
+
 __device__ __forceinline__ bool key_masked(const Args& a, const float* smask,
                                            int q_pos, int k_pos, int c) {
   return (a.causal && k_pos > q_pos) || (a.mask && !(smask[c] > 0.f));
 }
 
-// ---------------------------------------------------------------------------
-// forward: o and lse
-// ---------------------------------------------------------------------------
-
-template <typename T, int H>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  using C = Cfg<T, H>;
+template <int H>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
+  using C = Cfg<H>;
   constexpr int BT = C::kTile;
   constexpr int kPer = BT / 32;
   extern __shared__ __align__(128) char smem[];
   char* p = smem;
-  T* sQ = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sK = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sV = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  float* sS = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdS));
-  T* sP = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLdP));
-  float* sO = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdO));
-  float* sM = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sL = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sA = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sMask = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
+  float* sQ = carve(p, BT * C::kLd);
+  float* sK = carve(p, BT * C::kLd);
+  float* sV = carve(p, BT * C::kLd);
+  float* sS = carve(p, BT * C::kLdS);
+  float* sP = carve(p, BT * C::kLdS);
+  float* sO = carve(p, BT * C::kLd);
+  float* sM = carve(p, BT);
+  float* sL = carve(p, BT);
+  float* sA = carve(p, BT);
+  float* sMask = carve(p, BT);
 
   const int qt = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
   const int kvh = n / (a.heads / a.kv_heads);
   const int q0 = qt * BT;
-  const T* qg = static_cast<const T*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h;
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h;
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const float* qg = static_cast<const float*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h;
+  const float* kg = static_cast<const float*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const float* vg = static_cast<const float*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile<T, H, C::kLd>(sQ, qg, a.sq.s, BT);
+  load_tile<H, C::kLd>(sQ, qg, a.sq.s, BT);
   for (int i = threadIdx.x; i < BT * H; i += kThreads) {
-    sO[(i / H) * C::kLdO + i % H] = 0.f;
+    sO[(i / H) * C::kLd + i % H] = 0.f;
   }
   for (int i = threadIdx.x; i < BT; i += kThreads) {
     sM[i] = kNegInf;
@@ -282,16 +913,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int n_kt = a.causal ? min(a.seq_k / BT, qt + 1) : a.seq_k / BT;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BT;
-    load_tile<T, H, C::kLd>(sK, kg + k0 * a.sk.s, a.sk.s, BT);
-    load_tile<T, H, C::kLd>(sV, vg + k0 * a.sv.s, a.sv.s, BT);
+    load_tile<H, C::kLd>(sK, kg + k0 * a.sk.s, a.sk.s, BT);
+    load_tile<H, C::kLd>(sV, vg + k0 * a.sv.s, a.sv.s, BT);
     if (a.mask) {
       for (int i = threadIdx.x; i < BT; i += kThreads) {
         sMask[i] = a.mask[(long long)b * a.seq_k + k0 + i];
       }
     }
     __syncthreads();
-    tile_mma<T, BT, BT, H, false, true, false>(sQ, C::kLd, sK, C::kLd, sS,
-                                               C::kLdS);
+    tile_mma<BT, BT, H, false, true, false>(sQ, C::kLd, sK, C::kLd, sS,
+                                            C::kLdS);
     __syncthreads();
     // online softmax, one warp per row
     for (int r = warp; r < BT; r += kWarps) {
@@ -312,7 +943,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       for (int t = 0; t < kPer; ++t) {
         const float pr = expf(s[t] - m_new);
         sum += pr;
-        sP[r * C::kLdP + lane + 32 * t] = from_f<T>(pr);
+        sP[r * C::kLdS + lane + 32 * t] = pr;
       }
       sum = warp_sum(sum);  // every lane has read sM[r] by now
       if (lane == 0) {
@@ -325,20 +956,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     __syncthreads();
     for (int i = threadIdx.x; i < BT * H; i += kThreads) {
       const int r = i / H;
-      sO[r * C::kLdO + i % H] *= sA[r];
+      sO[r * C::kLd + i % H] *= sA[r];
     }
     __syncthreads();
-    tile_mma<T, BT, H, BT, false, false, true>(sP, C::kLdP, sV, C::kLd, sO,
-                                               C::kLdO);
+    tile_mma<BT, H, BT, false, false, true>(sP, C::kLdS, sV, C::kLd, sO,
+                                            C::kLd);
     __syncthreads();
   }
-  T* og = static_cast<T*>(a.out) + b * a.so.b + q0 * a.so.s + n * a.so.h;
+  float* og = static_cast<float*>(a.out) + b * a.so.b + q0 * a.so.s + n * a.so.h;
   for (int i = threadIdx.x; i < BT * H; i += kThreads) {
     const int r = i / H, d = i % H;
     const float l = sL[r];
-    const float val =
-        sM[r] == kNegInf ? 0.f : sO[r * C::kLdO + d] / (l == 0.f ? 1.f : l);
-    og[r * a.so.s + d] = from_f<T>(val);
+    og[r * a.so.s + d] =
+        sM[r] == kNegInf ? 0.f : sO[r * C::kLd + d] / (l == 0.f ? 1.f : l);
   }
   for (int r = threadIdx.x; r < BT; r += kThreads) {
     const float l = sL[r];
@@ -347,12 +977,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward: delta, dq, dk/dv
-// ---------------------------------------------------------------------------
-
-template <typename T, int H>
-__global__ void __launch_bounds__(kThreads) flash_delta_kernel(Args a) {
+template <int H>
+__global__ void __launch_bounds__(kThreads) flash_delta_f32_kernel(Args a) {
   const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   const long long rows = (long long)a.batch * a.seq_q * a.heads;
   if (row >= rows) return;
@@ -360,68 +986,68 @@ __global__ void __launch_bounds__(kThreads) flash_delta_kernel(Args a) {
   const int n = row % a.heads;
   const int s = (row / a.heads) % a.seq_q;
   const int b = row / ((long long)a.heads * a.seq_q);
-  const T* o = static_cast<const T*>(a.o) + b * a.so.b + s * a.so.s + n * a.so.h;
-  const T* d = static_cast<const T*>(a.dout) + b * a.sdo.b + s * a.sdo.s +
-               n * a.sdo.h;
+  const float* o = static_cast<const float*>(a.o) + b * a.so.b + s * a.so.s + n * a.so.h;
+  const float* d = static_cast<const float*>(a.dout) + b * a.sdo.b +
+                   s * a.sdo.s + n * a.sdo.h;
   float acc = 0.f;
-  for (int i = lane; i < H; i += 32) acc += to_f(o[i]) * to_f(d[i]);
+  for (int i = lane; i < H; i += 32) acc += o[i] * d[i];
   acc = warp_sum(acc);
   if (lane == 0) a.delta[((long long)b * a.heads + n) * a.seq_q + s] = acc;
 }
 
-template <typename T, int H>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  using C = Cfg<T, H>;
+template <int H>
+__global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(Args a) {
+  using C = Cfg<H>;
   constexpr int BT = C::kTile;
   extern __shared__ __align__(128) char smem[];
   char* p = smem;
-  T* sQ = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sDO = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sK = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sV = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  float* sS = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdS));
-  float* sDP = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdS));
-  T* sDS = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLdP));
-  float* sDQ = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdO));
-  float* sLse = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sDelta = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sMask = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
+  float* sQ = carve(p, BT * C::kLd);
+  float* sDO = carve(p, BT * C::kLd);
+  float* sK = carve(p, BT * C::kLd);
+  float* sV = carve(p, BT * C::kLd);
+  float* sS = carve(p, BT * C::kLdS);
+  float* sDP = carve(p, BT * C::kLdS);
+  float* sDS = carve(p, BT * C::kLdS);
+  float* sDQ = carve(p, BT * C::kLd);
+  float* sLse = carve(p, BT);
+  float* sDelta = carve(p, BT);
+  float* sMask = carve(p, BT);
 
   const int qt = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
   const int kvh = n / (a.heads / a.kv_heads);
   const int q0 = qt * BT;
   const long long row0 = ((long long)b * a.heads + n) * a.seq_q + q0;
-  load_tile<T, H, C::kLd>(
-      sQ, static_cast<const T*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h,
+  load_tile<H, C::kLd>(
+      sQ, static_cast<const float*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h,
       a.sq.s, BT);
-  load_tile<T, H, C::kLd>(
+  load_tile<H, C::kLd>(
       sDO,
-      static_cast<const T*>(a.dout) + b * a.sdo.b + q0 * a.sdo.s + n * a.sdo.h,
+      static_cast<const float*>(a.dout) + b * a.sdo.b + q0 * a.sdo.s + n * a.sdo.h,
       a.sdo.s, BT);
   for (int i = threadIdx.x; i < BT * H; i += kThreads) {
-    sDQ[(i / H) * C::kLdO + i % H] = 0.f;
+    sDQ[(i / H) * C::kLd + i % H] = 0.f;
   }
   for (int i = threadIdx.x; i < BT; i += kThreads) {
     sLse[i] = a.lse[row0 + i];
     sDelta[i] = a.delta[row0 + i];
   }
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h;
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const float* kg = static_cast<const float*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const float* vg = static_cast<const float*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int n_kt = a.causal ? min(a.seq_k / BT, qt + 1) : a.seq_k / BT;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BT;
-    load_tile<T, H, C::kLd>(sK, kg + k0 * a.sk.s, a.sk.s, BT);
-    load_tile<T, H, C::kLd>(sV, vg + k0 * a.sv.s, a.sv.s, BT);
+    load_tile<H, C::kLd>(sK, kg + k0 * a.sk.s, a.sk.s, BT);
+    load_tile<H, C::kLd>(sV, vg + k0 * a.sv.s, a.sv.s, BT);
     if (a.mask) {
       for (int i = threadIdx.x; i < BT; i += kThreads) {
         sMask[i] = a.mask[(long long)b * a.seq_k + k0 + i];
       }
     }
     __syncthreads();
-    tile_mma<T, BT, BT, H, false, true, false>(sQ, C::kLd, sK, C::kLd, sS,
-                                               C::kLdS);
-    tile_mma<T, BT, BT, H, false, true, false>(sDO, C::kLd, sV, C::kLd, sDP,
-                                               C::kLdS);
+    tile_mma<BT, BT, H, false, true, false>(sQ, C::kLd, sK, C::kLd, sS,
+                                            C::kLdS);
+    tile_mma<BT, BT, H, false, true, false>(sDO, C::kLd, sV, C::kLd, sDP,
+                                            C::kLdS);
     __syncthreads();
     // p from the saved lse (re-masked: a dead row's lse is NEG_INF), then
     // ds = p * (dp - delta) * scale
@@ -431,53 +1057,52 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
           key_masked(a, sMask, q0 + r, k0 + c, c)
               ? 0.f
               : expf(sS[r * C::kLdS + c] * a.scale - sLse[r]);
-      sDS[r * C::kLdP + c] =
-          from_f<T>(pr * (sDP[r * C::kLdS + c] - sDelta[r]) * a.scale);
+      sDS[r * C::kLdS + c] = pr * (sDP[r * C::kLdS + c] - sDelta[r]) * a.scale;
     }
     __syncthreads();
-    tile_mma<T, BT, H, BT, false, false, true>(sDS, C::kLdP, sK, C::kLd, sDQ,
-                                               C::kLdO);
+    tile_mma<BT, H, BT, false, false, true>(sDS, C::kLdS, sK, C::kLd, sDQ,
+                                            C::kLd);
     __syncthreads();
   }
-  T* dq = static_cast<T*>(a.out) + b * a.sdq.b + q0 * a.sdq.s + n * a.sdq.h;
+  float* dq = static_cast<float*>(a.out) + b * a.sdq.b + q0 * a.sdq.s + n * a.sdq.h;
   for (int i = threadIdx.x; i < BT * H; i += kThreads) {
     const int r = i / H, d = i % H;
-    dq[r * a.sdq.s + d] = from_f<T>(sDQ[r * C::kLdO + d]);
+    dq[r * a.sdq.s + d] = sDQ[r * C::kLd + d];
   }
 }
 
-template <typename T, int H>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
-  using C = Cfg<T, H>;
+template <int H>
+__global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Args a) {
+  using C = Cfg<H>;
   constexpr int BT = C::kTile;
   extern __shared__ __align__(128) char smem[];
   char* p = smem;
-  T* sK = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sV = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sQ = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  T* sDO = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLd));
-  float* sS = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdS));
-  float* sDP = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdS));
-  T* sP = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLdP));
-  T* sDS = reinterpret_cast<T*>(carve(p, sizeof(T) * BT * C::kLdP));
-  float* sDK = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdO));
-  float* sDV = reinterpret_cast<float*>(carve(p, sizeof(float) * BT * C::kLdO));
-  float* sLse = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sDelta = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
-  float* sMask = reinterpret_cast<float*>(carve(p, sizeof(float) * BT));
+  float* sK = carve(p, BT * C::kLd);
+  float* sV = carve(p, BT * C::kLd);
+  float* sQ = carve(p, BT * C::kLd);
+  float* sDO = carve(p, BT * C::kLd);
+  float* sS = carve(p, BT * C::kLdS);
+  float* sDP = carve(p, BT * C::kLdS);
+  float* sP = carve(p, BT * C::kLdS);
+  float* sDS = carve(p, BT * C::kLdS);
+  float* sDK = carve(p, BT * C::kLd);
+  float* sDV = carve(p, BT * C::kLd);
+  float* sLse = carve(p, BT);
+  float* sDelta = carve(p, BT);
+  float* sMask = carve(p, BT);
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = a.heads / a.kv_heads;
   const int k0 = kt * BT;
-  load_tile<T, H, C::kLd>(
-      sK, static_cast<const T*>(a.k) + b * a.sk.b + k0 * a.sk.s + kvh * a.sk.h,
+  load_tile<H, C::kLd>(
+      sK, static_cast<const float*>(a.k) + b * a.sk.b + k0 * a.sk.s + kvh * a.sk.h,
       a.sk.s, BT);
-  load_tile<T, H, C::kLd>(
-      sV, static_cast<const T*>(a.v) + b * a.sv.b + k0 * a.sv.s + kvh * a.sv.h,
+  load_tile<H, C::kLd>(
+      sV, static_cast<const float*>(a.v) + b * a.sv.b + k0 * a.sv.s + kvh * a.sv.h,
       a.sv.s, BT);
   for (int i = threadIdx.x; i < BT * H; i += kThreads) {
-    sDK[(i / H) * C::kLdO + i % H] = 0.f;
-    sDV[(i / H) * C::kLdO + i % H] = 0.f;
+    sDK[(i / H) * C::kLd + i % H] = 0.f;
+    sDV[(i / H) * C::kLd + i % H] = 0.f;
   }
   if (a.mask) {
     for (int i = threadIdx.x; i < BT; i += kThreads) {
@@ -491,22 +1116,22 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     for (int qt = qt0; qt < a.seq_q / BT; ++qt) {
       const int q0 = qt * BT;
       const long long row0 = ((long long)b * a.heads + n) * a.seq_q + q0;
-      load_tile<T, H, C::kLd>(
-          sQ, static_cast<const T*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h,
+      load_tile<H, C::kLd>(
+          sQ, static_cast<const float*>(a.q) + b * a.sq.b + q0 * a.sq.s + n * a.sq.h,
           a.sq.s, BT);
-      load_tile<T, H, C::kLd>(sDO,
-                              static_cast<const T*>(a.dout) + b * a.sdo.b +
-                                  q0 * a.sdo.s + n * a.sdo.h,
-                              a.sdo.s, BT);
+      load_tile<H, C::kLd>(sDO,
+                           static_cast<const float*>(a.dout) + b * a.sdo.b +
+                               q0 * a.sdo.s + n * a.sdo.h,
+                           a.sdo.s, BT);
       for (int i = threadIdx.x; i < BT; i += kThreads) {
         sLse[i] = a.lse[row0 + i];
         sDelta[i] = a.delta[row0 + i];
       }
       __syncthreads();
-      tile_mma<T, BT, BT, H, false, true, false>(sQ, C::kLd, sK, C::kLd, sS,
-                                                 C::kLdS);
-      tile_mma<T, BT, BT, H, false, true, false>(sDO, C::kLd, sV, C::kLd, sDP,
-                                                 C::kLdS);
+      tile_mma<BT, BT, H, false, true, false>(sQ, C::kLd, sK, C::kLd, sS,
+                                              C::kLdS);
+      tile_mma<BT, BT, H, false, true, false>(sDO, C::kLd, sV, C::kLd, sDP,
+                                              C::kLdS);
       __syncthreads();
       for (int i = threadIdx.x; i < BT * BT; i += kThreads) {
         const int r = i / BT, c = i % BT;
@@ -514,92 +1139,73 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
             key_masked(a, sMask, q0 + r, k0 + c, c)
                 ? 0.f
                 : expf(sS[r * C::kLdS + c] * a.scale - sLse[r]);
-        sP[r * C::kLdP + c] = from_f<T>(pr);
-        sDS[r * C::kLdP + c] =
-            from_f<T>(pr * (sDP[r * C::kLdS + c] - sDelta[r]) * a.scale);
+        sP[r * C::kLdS + c] = pr;
+        sDS[r * C::kLdS + c] = pr * (sDP[r * C::kLdS + c] - sDelta[r]) * a.scale;
       }
       __syncthreads();
       // dv += p^T dO ; dk += ds^T q
-      tile_mma<T, BT, H, BT, true, false, true>(sP, C::kLdP, sDO, C::kLd, sDV,
-                                                C::kLdO);
-      tile_mma<T, BT, H, BT, true, false, true>(sDS, C::kLdP, sQ, C::kLd, sDK,
-                                                C::kLdO);
+      tile_mma<BT, H, BT, true, false, true>(sP, C::kLdS, sDO, C::kLd, sDV,
+                                             C::kLd);
+      tile_mma<BT, H, BT, true, false, true>(sDS, C::kLdS, sQ, C::kLd, sDK,
+                                             C::kLd);
       __syncthreads();
     }
   }
   __syncthreads();  // the q loop may be empty (causal, seq_q < seq_k)
-  T* dk = static_cast<T*>(a.dk) + b * a.sdk.b + k0 * a.sdk.s + kvh * a.sdk.h;
-  T* dv = static_cast<T*>(a.dv) + b * a.sdv.b + k0 * a.sdv.s + kvh * a.sdv.h;
+  float* dk = static_cast<float*>(a.dk) + b * a.sdk.b + k0 * a.sdk.s + kvh * a.sdk.h;
+  float* dv = static_cast<float*>(a.dv) + b * a.sdv.b + k0 * a.sdv.s + kvh * a.sdv.h;
   for (int i = threadIdx.x; i < BT * H; i += kThreads) {
     const int r = i / H, d = i % H;
-    dk[r * a.sdk.s + d] = from_f<T>(sDK[r * C::kLdO + d]);
-    dv[r * a.sdv.s + d] = from_f<T>(sDV[r * C::kLdO + d]);
+    dk[r * a.sdk.s + d] = sDK[r * C::kLd + d];
+    dv[r * a.sdv.s + d] = sDV[r * C::kLd + d];
   }
 }
 
-// ---------------------------------------------------------------------------
-// launch
-// ---------------------------------------------------------------------------
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return bytes > 48 * 1024
-             ? cudaFuncSetAttribute(kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)bytes)
-             : cudaSuccess;
-}
-
-template <typename T, int H>
-int launch_fwd(const Args& a, cudaStream_t stream) {
-  using C = Cfg<T, H>;
-  constexpr size_t smem = fwd_smem<T, H>();
-  static const cudaError_t err = allow_smem(flash_fwd_kernel<T, H>, smem);
+template <int H>
+int launch_fwd_f32(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem<H>();
+  static const cudaError_t err = allow_smem(flash_fwd_f32_kernel<H>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.seq_q / C::kTile, a.heads, a.batch);
-  flash_fwd_kernel<T, H><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid(a.seq_q / Cfg<H>::kTile, a.heads, a.batch);
+  flash_fwd_f32_kernel<H><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int H>
-int launch_bwd(const Args& a, cudaStream_t stream) {
-  using C = Cfg<T, H>;
-  constexpr size_t dq_bytes = dq_smem<T, H>();
-  constexpr size_t dkv_bytes = dkv_smem<T, H>();
-  static const cudaError_t dq_attr = allow_smem(flash_dq_kernel<T, H>, dq_bytes);
+template <int H>
+int launch_bwd_f32(const Args& a, cudaStream_t stream) {
+  constexpr int BT = Cfg<H>::kTile;
+  constexpr size_t dq_bytes = dq_smem<H>();
+  constexpr size_t dkv_bytes = dkv_smem<H>();
+  static const cudaError_t dq_attr = allow_smem(flash_dq_f32_kernel<H>, dq_bytes);
   static const cudaError_t dkv_attr =
-      allow_smem(flash_dkv_kernel<T, H>, dkv_bytes);
+      allow_smem(flash_dkv_f32_kernel<H>, dkv_bytes);
   if (dq_attr != cudaSuccess) return (int)dq_attr;
   if (dkv_attr != cudaSuccess) return (int)dkv_attr;
   cudaError_t err;
   const long long rows = (long long)a.batch * a.seq_q * a.heads;
-  flash_delta_kernel<T, H>
+  flash_delta_f32_kernel<H>
       <<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_dq_kernel<T, H><<<dim3(a.seq_q / C::kTile, a.heads, a.batch), kThreads,
-                          dq_bytes, stream>>>(a);
+  flash_dq_f32_kernel<H><<<dim3(a.seq_q / BT, a.heads, a.batch), kThreads,
+                           dq_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_kernel<T, H><<<dim3(a.seq_k / C::kTile, a.kv_heads, a.batch),
-                           kThreads, dkv_bytes, stream>>>(a);
+  flash_dkv_f32_kernel<H><<<dim3(a.seq_k / BT, a.kv_heads, a.batch), kThreads,
+                            dkv_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int tile_for(int head_dim) {
-  switch (head_dim) {
-    case 64: return Cfg<T, 64>::kTile;
-    case 128: return Cfg<T, 128>::kTile;
-    case 256: return Cfg<T, 256>::kTile;
-    default: return 0;
-  }
-}
+// ===========================================================================
+// dispatch
+// ===========================================================================
 
-// Cfg's kTile for this dtype and head_dim; 0 where no kernel is built.
+// Rows per tile for a dtype (0 = float32, 1 = bfloat16) and head_dim, or 0
+// where no kernel is built.
 int tile_of(int dtype, int head_dim) {
-  if (dtype == 0) return tile_for<float>(head_dim);
-  if (dtype == 1) return tile_for<__nv_bfloat16>(head_dim);
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) return 0;
+  if (dtype == 0) return head_dim <= 64 ? Cfg<64>::kTile : Cfg<128>::kTile;
+  if (dtype == 1) return bf16_tile(head_dim);
   return 0;
 }
 
@@ -615,9 +1221,14 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <int (*F32)(const Args&, cudaStream_t), int (*BF16)(const Args&, cudaStream_t)>
-int pick(int dtype, const Args& a, cudaStream_t s) {
-  return dtype == 0 ? F32(a, s) : BF16(a, s);
+using Launch = int (*)(const Args&, cudaStream_t);
+
+int run(Launch f32_64, Launch f32_128, Launch f32_256, Launch bf_64,
+        Launch bf_128, Launch bf_256, int dtype, int head_dim, const Args& a,
+        cudaStream_t s) {
+  if (head_dim == 64) return dtype == 0 ? f32_64(a, s) : bf_64(a, s);
+  if (head_dim == 128) return dtype == 0 ? f32_128(a, s) : bf_128(a, s);
+  return dtype == 0 ? f32_256(a, s) : bf_256(a, s);
 }
 
 }  // namespace
@@ -627,6 +1238,17 @@ int pick(int dtype, const Args& a, cudaStream_t s) {
 // it; the Python wrapper reads it from here.
 extern "C" int dpx_flash_tile(int dtype, int head_dim) {
   return tile_of(dtype, head_dim);
+}
+
+// The bf16 kernel `which` (0 forward, 1 dq, 2 dk/dv) at head_dim: writes
+// [threads, dynamic shared bytes, registers, spill bytes, CTAs per SM] to
+// out (5 ints). For reports; the kernels never call it.
+extern "C" int dpx_flash_occupancy(int head_dim, int which, int* out) {
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  if (head_dim == 64) return occupancy_bf16<64>(which, out);
+  if (head_dim == 128) return occupancy_bf16<128>(which, out);
+  if (head_dim == 256) return occupancy_bf16<256>(which, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64, 128 or 256; heads % kv_heads
@@ -660,15 +1282,15 @@ extern "C" int dpx_flash_fwd(int dtype, int head_dim, const void* q,
   a.seq_k = seq_k;
   a.causal = causal;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return pick<launch_fwd<float, 64>, launch_fwd<__nv_bfloat16, 64>>(dtype, a, s);
-  if (head_dim == 128) return pick<launch_fwd<float, 128>, launch_fwd<__nv_bfloat16, 128>>(dtype, a, s);
-  return pick<launch_fwd<float, 256>, launch_fwd<__nv_bfloat16, 256>>(dtype, a, s);
+  return run(launch_fwd_f32<64>, launch_fwd_f32<128>, launch_fwd_f32<256>,
+             launch_fwd_bf16<64>, launch_fwd_bf16<128>, launch_fwd_bf16<256>,
+             dtype, head_dim, a, static_cast<cudaStream_t>(stream));
 }
 
-// Launches delta = rowsum(do * o), then the dq kernel, then the dk/dv
-// kernel. strides: 24 int64, [batch, seq, head] for q, k, v, o, do, dq, dk,
-// dv. delta: (B, N, Sq) float32 scratch.
+// bf16: launches the dq kernel (which also writes delta = rowsum(do * o)),
+// then the dk/dv kernel; float32: delta, dq, dk/dv. strides: 24 int64,
+// [batch, seq, head] for q, k, v, o, do, dq, dk, dv. delta: (B, N, Sq)
+// float32 scratch.
 extern "C" int dpx_flash_bwd(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, const void* o,
                              const void* dout, const float* lse,
@@ -707,8 +1329,7 @@ extern "C" int dpx_flash_bwd(int dtype, int head_dim, const void* q,
   a.seq_k = seq_k;
   a.causal = causal;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return pick<launch_bwd<float, 64>, launch_bwd<__nv_bfloat16, 64>>(dtype, a, s);
-  if (head_dim == 128) return pick<launch_bwd<float, 128>, launch_bwd<__nv_bfloat16, 128>>(dtype, a, s);
-  return pick<launch_bwd<float, 256>, launch_bwd<__nv_bfloat16, 256>>(dtype, a, s);
+  return run(launch_bwd_f32<64>, launch_bwd_f32<128>, launch_bwd_f32<256>,
+             launch_bwd_bf16<64>, launch_bwd_bf16<128>, launch_bwd_bf16<256>,
+             dtype, head_dim, a, static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,9 @@
 
 - :func:`flash_attention_fwd` launches the forward kernel of
   ``csrc/flash_attention.cu`` (o and the float32 logsumexp);
-  :func:`flash_attention_bwd` launches its backward (delta, then the dq
-  kernel, then the dk/dv kernel). They are the Hopper port of the TPU
+  :func:`flash_attention_bwd` launches its backward (for bf16 the dq
+  kernel, which also writes delta = rowsum(dO ∘ O), then the dk/dv kernel;
+  for float32 delta, dq and dk/dv). They are the Hopper port of the TPU
   kernels in ``distributed_pytorch_example_tpu/ops/pallas/
   flash_attention.py`` (``_fwd`` / ``_fwd_single`` and ``_bwd`` /
   ``_bwd_single`` / ``_bwd_split``). Each launch adds one to
@@ -54,10 +55,11 @@ def _kernel_fn(name: str):
 
 
 def kernel_tile(dtype: torch.dtype, head_dim: int) -> int:
-    """Rows per tile in the kernels, read from the library (``Cfg::kTile``
-    in the source): 64, or 32 where a 64-row tile set would not fit shared
-    memory. Sequence lengths must divide by it. Builds the library at
-    first use; takes a dtype and head_dim the kernels serve."""
+    """Rows per tile in the kernels, read from the library
+    (``dpx_flash_tile``): bf16 128, or 64 at head_dim 256; float32 64, or
+    32 at head_dim 128 and 256. Sequence lengths must divide by it. Builds
+    the library at first use; takes a dtype and head_dim the kernels
+    serve."""
     return _kernel_fn("dpx_flash_tile")(_DTYPE_CODES[dtype], head_dim)
 
 
@@ -190,7 +192,8 @@ def flash_attention_bwd(
     softmax_scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward kernels on the card: ``(dq, dk, dv)`` shaped like q, k, v.
-    One call launches three kernels (delta, dq, dk/dv) and counts once."""
+    One call launches two kernels for bf16 (dq with delta, then dk/dv) or
+    three for float32 (delta, dq, dk/dv) and counts once."""
     _check_kernel_inputs(q, k, v, kv_mask)
     _check_rows("o", o, q)
     _check_rows("do", do, q)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -34,11 +35,10 @@ BATCH, SEQ, WARMUP, TIMED, PROFILED = 16, 1024, 3, 5, 5
 
 def name_class(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
+    # csrc/flash_attention.cu names every K1 kernel flash_<part>_<dtype>_kernel
+    if "flash_fwd_" in low:
         return "K1 forward"
-    if "flash_dq_kernel" in low or "flash_dkv_kernel" in low or (
-        "flash_delta_kernel" in low
-    ):
+    if any(key in low for key in ("flash_dq_", "flash_dkv_", "flash_delta_")):
         return "K1 backward"
     # cuBLAS's Hopper GEMMs are named nvjet_*
     if any(key in low for key in ("gemm", "cutlass", "matmul", "xmma",
@@ -151,8 +151,12 @@ def main() -> int:
             cls = name_class(name)
             by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi.splitlines()[0] if smi else None,
         "config": f"GPT-2 124M bf16 fused loss, batch {BATCH} x {SEQ}",
         "step_ms_unprofiled": step_ms,
         "tokens_per_sec_unprofiled": BATCH * SEQ / step_ms * 1e3,

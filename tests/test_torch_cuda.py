@@ -163,6 +163,10 @@ FLASH_CASES = {
     "bf16-h256": (torch.bfloat16, False, 2, 1, 128, 256, True),
     "fp32-h128": (torch.float32, True, 2, 2, 128, 128, False),
     "fp32-h256": (torch.float32, True, 2, 2, 64, 256, False),
+    # more k tiles than the kernels' two-stage ring has stages
+    "bf16-causal-2048": (torch.bfloat16, True, 2, 2, 2048, 64, False),
+    # BERT's attention: 12 heads, S 512, a key mask, no causal mask
+    "bf16-bert-512": (torch.bfloat16, False, 12, 12, 512, 64, True),
 }
 
 
@@ -194,6 +198,41 @@ def test_flash_kernels_match_plain_versions(card, case):
         assert torch.all(grads[0][-1] == 0)
 
 
+def test_flash_kernels_at_the_training_shape(card):
+    """GPT-2 124M's attention as the training step calls it: B 16, N 12,
+    S 1024, H 64, bf16, causal, at chip_smoke's tolerances."""
+    q, k, v, do, _ = flash_case(batch=16, heads=12, kv_heads=12, seq=1024,
+                                head_dim=64, dtype=torch.bfloat16,
+                                masked=False, seed=1024)
+    kw = dict(causal=True, kv_mask=None, softmax_scale=64 ** -0.5)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+    rgrads = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    errs = chip_smoke.flash_errors(torch, (o, lse, *grads),
+                                   (ro, rlse, *rgrads))
+    tols = chip_smoke.FLASH_TOL["bfloat16"]
+    for name, err in errs.items():
+        assert err <= tols[name], (name, err, tols[name])
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_is_deterministic(card, causal):
+    """No atomics: two backward calls on the same inputs give bit-equal
+    dq, dk and dv (GQA, so dk/dv sum a group of heads)."""
+    q, k, v, do, mask = flash_case(batch=2, heads=8, kv_heads=2, seq=512,
+                                   head_dim=64, dtype=torch.bfloat16,
+                                   masked=not causal, seed=5)
+    kw = dict(causal=causal, kv_mask=mask, softmax_scale=0.125)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    first = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_flash_autograd_launches_the_kernels(card):
     q, k, v, do, _ = flash_case(batch=2, heads=2, kv_heads=2, seq=128,
                                 head_dim=64, dtype=torch.bfloat16,
@@ -222,6 +261,9 @@ def test_flash_kernels_refuse_inputs_they_do_not_take(card):
         "float16": (q.half(), k.half(), v.half()),
         "seq 96": (q[:, :96].contiguous(), k[:, :96].contiguous(),
                    v[:, :96].contiguous()),
+        # bf16 tiles are 128 rows at head_dim 64
+        "seq 64": (q[:, :64].contiguous(), k[:, :64].contiguous(),
+                   v[:, :64].contiguous()),
         "mixed dtypes": (q, k.float(), v),
     }
     before = flash_attention_fwd.launches

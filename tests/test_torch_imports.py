@@ -50,6 +50,7 @@ def test_port_and_chip_smoke_import_no_jax():
               ROOT / "scripts" / "profile_torch_train.py",
               ROOT / "scripts" / "probe_peer_ipc.py",
               ROOT / "scripts" / "ring_nvlink.py",
+              ROOT / "scripts" / "bench_flash.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
     for path in files:
