@@ -18,7 +18,8 @@ last line:
    the paged-decode kernel (K2), the flash-attention forward and backward
    (K1), then the ring all-gather and reduce-scatter (K3a, K3b) with 2, 4
    and 8 in-process ranks, each on its own CUDA stream, at one 4 MiB
-   gradient bucket and at the whole GPT-2 124M gradient;
+   gradient bucket and at the whole GPT-2 124M gradient (K3b also bit for
+   bit against the plain sum in the TPU ring's order);
 4. serve  — GPT-2 124M at full width (random weights from a seed) through
    ``InferenceEngine.run``: 16 requests greedy, then at temperature 1.0 with
    top-k 50; checks every request completes, the paged-decode kernel ran
@@ -571,6 +572,7 @@ def check_ring(torch, bandwidth):
         ring_all_gather_reference,
         ring_reduce_scatter,
         ring_reduce_scatter_reference,
+        ring_reduce_scatter_ring_order,
     )
 
     entries = {}
@@ -621,11 +623,18 @@ def check_ring(torch, bandwidth):
                 check(ok and math.isfinite(err),
                       f"K3b R={world} {label} {name}: max abs err {err:.3e} "
                       "outside the float32 rounding bound")
+                exact = ring_reduce_scatter_ring_order(xs)
+                check(all(torch.equal(g, e) for g, e in zip(got, exact)),
+                      f"K3b R={world} {label} {name}: not bit-equal to the "
+                      "sum in the TPU ring's order")
+                del exact
                 say("kernel", f"K3b R={world} {label} {name}: {n} elements "
                               f"per rank in, max abs err {err:.3e} (within "
                               "2 (R-1) 2^-24 sum|x| elementwise"
                               + (", + 2^-7 sum|x| for the bf16 output"
-                                 if dtype == torch.bfloat16 else "") + ")")
+                                 if dtype == torch.bfloat16 else "")
+                              + "), bit-equal to the sum in the TPU ring's "
+                              "order on every rank")
                 if dtype == torch.float32:
                     entry = time_ring(torch, bandwidth, "rs", rings, xs,
                                       streams, world)

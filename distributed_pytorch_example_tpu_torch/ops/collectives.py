@@ -1,5 +1,5 @@
-"""Ring all-gather (K3a) and ring reduce-scatter (K3b) over peer memory:
-the CUDA kernels, their plain versions and the peer workspace.
+"""Ring all-gather (K3a) and one-shot reduce-scatter (K3b) over peer
+memory: the CUDA kernels, their plain versions and the peer workspace.
 
 - :func:`ring_all_gather` launches ``csrc/ring_collectives.cu``'s K3a, the
   Hopper port of the TPU kernel ``ring_all_gather`` / ``_ag_kernel``
@@ -8,14 +8,18 @@ the CUDA kernels, their plain versions and the peer workspace.
   half counter-clockwise), double-buffered by hop parity, with a
   neighbour barrier first. It moves bytes, so it takes any dtype.
 - :func:`ring_reduce_scatter` launches K3b, the port of
-  ``ring_reduce_scatter`` / ``_rs_kernel``: the tiled reduce-scatter on
-  the same ring, each hop folding this rank's part into the received
-  partial in float32, cast back to the input dtype at the end.
+  ``ring_reduce_scatter`` / ``_rs_kernel``: the tiled reduce-scatter. Every
+  rank pushes each destination's part straight into that rank's workspace
+  (one hop across the H100's all-to-all NVLink), and the destination adds
+  the parts in float32 in the TPU ring's order, bit for bit
+  (:func:`ring_reduce_scatter_ring_order`), cast back to the input dtype.
 - Each launch adds one to ``ring_all_gather.launches`` /
   ``ring_reduce_scatter.launches``.
 - :func:`ring_all_gather_reference` / :func:`ring_reduce_scatter_reference`
   are the plain versions. They take the list of every rank's tensor and
-  return every rank's result.
+  return every rank's result. :func:`ring_reduce_scatter_ring_order` is
+  the plain sum in the ring's order, which K3b must equal exactly; the
+  tests and the card checks use it.
 
 The kernels take what the TPU kernels take: a local payload that splits
 into two halves of 128-element rows (:func:`half_rows`), on a ring of at
@@ -84,6 +88,7 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dpx_ring_alloc.argtypes = [i, ctypes.POINTER(p)]
         lib.dpx_ring_free.argtypes = [p]
+        lib.dpx_ring_card_ranks.argtypes = [p, i]
         lib.dpx_ipc_get_handle.argtypes = [p, p]
         lib.dpx_ipc_open.argtypes = [i, p, ctypes.POINTER(p)]
         lib.dpx_ipc_close.argtypes = [p]
@@ -91,6 +96,7 @@ def _lib() -> ctypes.CDLL:
         lib.dpx_ring_reduce_scatter.argtypes = [p, i, i, i, i, p, p, ll, p,
                                                 ll, p]
         for fn in (lib.dpx_ring_alloc, lib.dpx_ring_free,
+                   lib.dpx_ring_card_ranks,
                    lib.dpx_ipc_get_handle, lib.dpx_ipc_open,
                    lib.dpx_ipc_close, lib.dpx_ring_all_gather,
                    lib.dpx_ring_reduce_scatter):
@@ -117,12 +123,16 @@ class PeerRing:
     it; ``own`` is the workspace this object frees on :meth:`close`, and
     ``opened`` the peer mappings it closes. ``err`` is this rank's device
     error word; ``timeout_s`` bounds every wait of its kernels.
+    ``card_ranks`` is how many of the ring's ranks run on this card at once
+    (all of them for in-process ranks, one for a ring over processes): the
+    reduce-scatter kernel's grid divides the card among them.
     """
 
     def __init__(self, rank: int, world: int, device: torch.device,
                  peer_ptrs: Sequence[int], *, own: Optional[int] = None,
                  opened: Sequence[int] = (),
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S,
+                 card_ranks: Optional[int] = None):
         self.rank, self.world, self.device = rank, world, device
         self.peers = torch.tensor(list(peer_ptrs), dtype=torch.int64,
                                   device=device)
@@ -130,6 +140,8 @@ class PeerRing:
         self.timeout_ns = int(timeout_s * 1e9)
         self._own = own
         self._opened = list(opened)
+        _lib().dpx_ring_card_ranks(ctypes.c_void_p(self.peers.data_ptr()),
+                                   card_ranks or world)
 
     @classmethod
     def local_group(cls, world: int, device="cuda",
@@ -141,8 +153,8 @@ class PeerRing:
             raise ValueError(f"PeerRing needs a CUDA device, got {device}")
         device = torch.device("cuda", device.index or 0)
         ptrs = [_alloc_workspace(device) for _ in range(world)]
-        return [cls(r, world, device, ptrs, own=ptrs[r], timeout_s=timeout_s)
-                for r in range(world)]
+        return [cls(r, world, device, ptrs, own=ptrs[r], timeout_s=timeout_s,
+                    card_ranks=world) for r in range(world)]
 
     @classmethod
     def over_process_group(cls, device,
@@ -175,7 +187,7 @@ class PeerRing:
             ptrs.append(ptr.value)
             opened.append(ptr.value)
         return cls(rank, world, device, ptrs, own=own, opened=opened,
-                   timeout_s=timeout_s)
+                   timeout_s=timeout_s, card_ranks=1)
 
     def check(self) -> None:
         """Raise if one of this rank's kernels timed out waiting on a
@@ -192,6 +204,7 @@ class PeerRing:
         """Unmap the peers' workspaces and free this rank's own."""
         lib = _lib()
         torch.cuda.synchronize(self.device)
+        lib.dpx_ring_card_ranks(ctypes.c_void_p(self.peers.data_ptr()), 0)
         for ptr in self._opened:
             lib.dpx_ipc_close(ctypes.c_void_p(ptr))
         if self._own is not None:
@@ -271,10 +284,11 @@ def ring_reduce_scatter(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
                         stream: int = 0) -> torch.Tensor:
     """Tiled reduce-scatter over axis 0: ``(world * c, ...)`` on each
     rank -> this rank's ``(c, ...)`` tile of the sum over ranks, summed
-    in float32 in the ring's order and cast back to ``x.dtype`` (float32
-    or bfloat16). The contract of ``lax.psum_scatter(x, axis,
-    scatter_dimension=0, tiled=True)``; ``stream`` picks the set of odd
-    collective id ``2 * stream + 1``.
+    in float32 in the TPU ring's order (:func:`ring_reduce_scatter_ring_order`)
+    and cast back to ``x.dtype`` (float32 or bfloat16). The contract of
+    ``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``;
+    ``stream`` picks the set of odd collective id ``2 * stream + 1``.
+    Launches on the current CUDA stream without synchronising.
     """
     if not x.is_cuda:
         return distributed.reduce_scatter_tiled(x)
@@ -332,3 +346,30 @@ def ring_reduce_scatter_reference(xs: Sequence[torch.Tensor]
     chunk = acc.shape[0] // world
     return [acc[r * chunk:(r + 1) * chunk].to(xs[0].dtype)
             for r in range(world)]
+
+
+def ring_reduce_scatter_ring_order(xs: Sequence[torch.Tensor]
+                                  ) -> List[torch.Tensor]:
+    """Plain K3b in the TPU ring's summation order, which the kernel
+    equals bit for bit: rank c's tile of ``(world * chunk, ...)`` sums the
+    ranks' float32 tiles c as ``((x[c+1] + x[c+2]) + ...) + x[c]`` over the
+    low half of the flattened tile and ``((x[c-1] + x[c-2]) + ...) + x[c]``
+    over the high half (rank indices mod world), cast back to the input
+    dtype: ``_rs_kernel``'s clockwise partial seeded at c + 1 with an
+    own-part add at every hop, and its counter-clockwise mirror."""
+    world = len(xs)
+    tiles = [x.float().reshape(world, -1) for x in xs]
+    chunk = tiles[0].shape[1]
+    half = chunk // 2
+    out = []
+    for c in range(world):
+        low = tiles[(c + 1) % world][c, :half].clone()
+        high = tiles[(c - 1) % world][c, half:].clone()
+        for j in range(2, world):
+            low += tiles[(c + j) % world][c, :half]
+            high += tiles[(c - j) % world][c, half:]
+        low += tiles[c][c, :half]
+        high += tiles[c][c, half:]
+        shape = (xs[c].shape[0] // world,) + tuple(xs[c].shape[1:])
+        out.append(torch.cat([low, high]).reshape(shape).to(xs[c].dtype))
+    return out

@@ -181,6 +181,16 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def nonfinite_count(grads: List[torch.Tensor]) -> torch.Tensor:
+    """Number of NaN or Inf elements over every gradient, as a float32
+    device scalar (the JAX package's ``telemetry.sentinels.nonfinite_count``,
+    the train step's skip predicate)."""
+    if not grads:
+        return torch.zeros(())
+    finite = torch.stack([torch.isfinite(g).sum() for g in grads]).sum()
+    return (sum(g.numel() for g in grads) - finite).float()
+
+
 class ShardedUpdate:
     """The ZeRO-1 / wire update of one model (the JAX step's manual data
     path): the leaves in the JAX order and layout, their ZeRO-1 dims, and
@@ -255,6 +265,20 @@ class ShardedUpdate:
             sq = sq + torch.stack(
                 torch._foreach_norm([g.float() for g in rest])).square().sum()
         return sq.sqrt()
+
+    def nonfinite_count(self) -> torch.Tensor:
+        """NaN or Inf elements of the synced gradients over the whole
+        model: the tiles' counts summed across ranks (a collective), the
+        replicated leaves counted once; the same on every rank."""
+        tiles = [t.grad for t in self.tiles if t is not None]
+        rest = [p.grad for p, t in zip(self.params, self.tiles) if t is None]
+        count = torch.zeros((), device=self.params[0].device)
+        if tiles:
+            count = distributed.all_reduce_sum_(
+                nonfinite_count(tiles).reshape(1))[0]
+        if rest:
+            count = count + nonfinite_count(rest)
+        return count
 
     @torch.no_grad()
     def replicate(self, config: "wirelib.WireConfig") -> None:

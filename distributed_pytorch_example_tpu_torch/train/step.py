@@ -23,13 +23,18 @@ local batch) before the one sync, accumulating float32 gradients (the
 parameters are float32, so their ``.grad`` is); metrics are the mean over
 microbatches.
 
-The non-finite skip (JAX's graft-armor predication): when the global
-gradient norm is NaN or Inf, the update is skipped, so parameters,
-moments and the schedule position stay as they were, and ``bad_step``
-reports 1.0. JAX takes that branch inside the compiled step; here the
-decision reads one device scalar on the host per step, the step's only
-sync, and the ring collectives' error words are read right after it, so a
-ring wait that timed out raises before any update.
+The non-finite skip (JAX's graft-armor predication): when any element
+of the synced gradients is NaN or Inf (their non-finite count, summed
+across ranks under the manual path, is above 0), the update is skipped,
+so parameters, moments and the schedule position stay as they were, and
+``bad_step`` reports 1.0. A finite gradient whose norm overflows float32
+is applied, as in JAX. A finite global norm means no element is NaN or
+Inf, so the count is taken only when the norm is not finite (every rank
+sees the same norm, so every rank takes the same branch). JAX takes that
+branch inside the compiled step; here the decision reads the norm on the
+host once per step, the step's only sync in the common case, and the
+ring collectives' error words are read right after it, so a ring wait
+that timed out raises before any update.
 
 Pipelines and the sentinel metrics are not in this slice and raise.
 """
@@ -49,6 +54,7 @@ from distributed_pytorch_example_tpu_torch.runtime import distributed
 from distributed_pytorch_example_tpu_torch.train.optimizers import (
     ShardedUpdate,
     global_norm,
+    nonfinite_count,
 )
 from distributed_pytorch_example_tpu_torch.train.state import TrainState
 
@@ -178,13 +184,16 @@ def build_train_step(
             if grad_accum_steps > 1:
                 torch._foreach_div_(grads, float(grad_accum_steps))
             norm = global_norm(grads) if grads else torch.zeros(())
-        ok = torch.isfinite(norm)
-        apply = not skip_nonfinite or bool(ok)
+        bad, apply = torch.zeros((), device=norm.device), True
+        if skip_nonfinite and not bool(torch.isfinite(norm)):
+            bad = (sharded(state).nonfinite_count() if manual
+                   else nonfinite_count(grads))
+            apply = not bool(bad > 0)
         collectives.check_rings()  # a ring wait that timed out raises here
         if apply and optimizer.step(grad_norm=norm) and manual:
             sharded(state).replicate(wire)
         if skip_nonfinite:
-            metrics = {**metrics, "bad_step": 1.0 - ok.float()}
+            metrics = {**metrics, "bad_step": (bad > 0).float()}
         state.step += 1
         return metrics
 

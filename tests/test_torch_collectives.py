@@ -14,6 +14,14 @@ normal inputs (a few ulps of sums below 8). bfloat16 outputs round those
 float32 sums to bf16, which may then lie one bf16 ulp apart (2^-7 of the
 largest |sum|).
 
+The plain sum in the ring's order (``ring_reduce_scatter_ring_order``),
+which K3b must equal bit for bit on the card, is held bit for bit against
+the TPU kernel itself: ``_rs_kernel`` run in Pallas's TPU interpret mode
+on the fake CPU mesh (remote copies and semaphores emulated), with its
+off-TPU fallback switched off for the test. It is also within
+chip_smoke.py's ``ring_rs_bound`` of the plain version, and equal to it at
+D = 2, where two terms commute exactly.
+
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -22,7 +30,10 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh, PartitionSpec as P
+
+import chip_smoke
 
 from distributed_pytorch_example_tpu.ops.pallas import collectives as jring
 from distributed_pytorch_example_tpu.runtime import jax_compat
@@ -86,6 +97,61 @@ def test_reduce_scatter_reference_matches_jax_ring(world, dtype):
         assert tile.dtype == tdt and tile.shape == (256,)
         np.testing.assert_allclose(tile.float().numpy(), want[r], rtol=0,
                                    atol=tol)
+
+
+@pytest.fixture
+def tpu_ring_interpreted(monkeypatch):
+    """The JAX ring entry points take the Pallas kernels, run by the TPU
+    interpreter, instead of their off-TPU XLA fallback. jax 0.9 names the
+    kernels' compiler parameters ``CompilerParams``."""
+    pallas_call = jring.pl.pallas_call
+
+    def interpreted(*args, **kwargs):
+        return pallas_call(*args, interpret=pltpu.InterpretParams(), **kwargs)
+
+    monkeypatch.setattr(jring, "ring_supported", lambda: True)
+    monkeypatch.setattr(jring.pl, "pallas_call", interpreted)
+    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                        raising=False)
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_order_sum_is_the_tpu_kernels_bit_for_bit(tpu_ring_interpreted,
+                                                       world, dtype):
+    rng = np.random.default_rng(20 + world)
+    x = rng.standard_normal((world, world * 512)).astype(np.float32)
+    mesh = _mesh(world)
+    with mesh:
+        jx = jax.numpy.asarray(x, dtype=dtype)
+        want = _smap(mesh, lambda v: jring.ring_reduce_scatter(
+            v[0], "data")[None], P("data"))(jx)
+    want = np.asarray(want.astype(jax.numpy.float32))  # (world, 512)
+    tdt = getattr(torch, dtype)
+    xs = [torch.from_numpy(x[r]).to(tdt) for r in range(world)]
+    got = collectives.ring_reduce_scatter_ring_order(xs)
+    for r, tile in enumerate(got):
+        assert tile.dtype == tdt and tile.shape == (512,)
+        np.testing.assert_array_equal(tile.float().numpy(), want[r])
+
+
+@pytest.mark.parametrize("world", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_order_sum_is_within_the_bound_of_the_plain_version(world,
+                                                                 dtype):
+    gen = torch.Generator().manual_seed(world)
+    xs = [torch.randn(world * 1024, generator=gen).to(dtype)
+          for _ in range(world)]
+    got = collectives.ring_reduce_scatter_ring_order(xs)
+    want = collectives.ring_reduce_scatter_reference(xs)
+    tols = chip_smoke.ring_rs_bound(torch, xs, world)
+    for g, w, t in zip(got, want, tols):
+        assert g.dtype == dtype and g.shape == w.shape
+        if world == 2:
+            assert torch.equal(g, w)
+        assert bool(((g.float() - w.float()).abs() <= t).all())
+    if world == 4 and dtype == torch.float32:  # the orders do differ
+        assert any(not torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("n", [0, 128, 255, 256, 300, 512, 768, 1 << 20])

@@ -330,9 +330,11 @@ def close_group(rings):
         ring.close()
 
 
-# (world, elements per rank): one piece per direction, and a payload of
-# several 1 MiB staging pieces per direction (the kernels' chunking)
-RING_CASES = [(2, 512), (4, 2048), (8, 256 * 8), (2, 3 << 20), (4, 3 << 18)]
+# (world, elements per rank): one piece per direction, a payload of
+# several 1 MiB staging pieces per direction (the kernels' chunking), and
+# one 4 MiB float32 gradient bucket (the main path's) at every world
+RING_CASES = [(2, 512), (4, 2048), (8, 256 * 8), (2, 3 << 20), (4, 3 << 18),
+              (2, 1 << 20), (4, 1 << 20), (8, 1 << 20)]
 
 
 @pytest.mark.parametrize("world,n", RING_CASES,
@@ -341,12 +343,14 @@ RING_CASES = [(2, 512), (4, 2048), (8, 256 * 8), (2, 3 << 20), (4, 3 << 18)]
                          ids=["fp32", "bf16", "int8"])
 def test_ring_kernels_match_plain_versions(card, world, n, dtype):
     """K3a equals the plain gather exactly (it moves bytes); K3b is within
-    chip_smoke's float32 rounding bound of the plain float32 sum."""
+    chip_smoke's float32 rounding bound of the plain float32 sum, and
+    equals the sum in the TPU ring's order bit for bit."""
     from distributed_pytorch_example_tpu_torch.ops.collectives import (
         ring_all_gather,
         ring_all_gather_reference,
         ring_reduce_scatter,
         ring_reduce_scatter_reference,
+        ring_reduce_scatter_ring_order,
     )
 
     rings, streams = ring_group(world)
@@ -375,6 +379,8 @@ def test_ring_kernels_match_plain_versions(card, world, n, dtype):
         for g, w, t in zip(got, want, tols):
             assert g.shape == (n // world,) and g.dtype == dtype
             assert bool(((g.float() - w.float()).abs() <= t).all())
+        for g, e in zip(got, ring_reduce_scatter_ring_order(xs)):
+            assert torch.equal(g, e)
     finally:
         close_group(rings)
 
@@ -483,3 +489,111 @@ def test_ring_stream_ids_in_flight_at_once_do_not_cross(card):
                 assert torch.equal(got[i][rank], want[rank]), (i, rank)
     finally:
         close_group(rings)
+
+
+# -- K3b: the one-shot reduce-scatter, bit for bit in the ring's order --------
+
+# 256 x a prime: a chunk that no piece size (a multiple of 256 elements)
+# divides, so the last piece is short; the larger one exceeds the staging
+# slots, so every CTA takes several pieces
+PRIME_CHUNKS = (256 * 4099, 256 * 65537)
+
+
+def rs_exact(rings, streams, xs, *, stream=0):
+    """K3b on every in-process rank against the ring-order sum, bit for
+    bit; returns the launch count it added."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_reduce_scatter,
+        ring_reduce_scatter_ring_order,
+    )
+
+    before = ring_reduce_scatter.launches
+    got = chip_smoke.ring_run(
+        torch, lambda x, ring: ring_reduce_scatter(x, ring, stream=stream),
+        rings, xs, streams)
+    want = ring_reduce_scatter_ring_order(xs)
+    torch.cuda.synchronize()
+    for ring in rings:
+        ring.check()
+    for rank, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (rank, (g.float() - w.float()).abs().max())
+    return ring_reduce_scatter.launches - before
+
+
+@pytest.mark.parametrize("chunk", PRIME_CHUNKS, ids=["one-round", "rounds"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_reduce_scatter_takes_a_chunk_no_piece_divides(card, chunk, dtype):
+    world = 2
+    rings, streams = ring_group(world)
+    try:
+        xs = chip_smoke.ring_inputs(torch, world, world * chunk, dtype,
+                                    seed=chunk % 97)
+        assert rs_exact(rings, streams, xs) == world
+    finally:
+        close_group(rings)
+
+
+def test_reduce_scatter_over_changing_sizes_and_stream_ids(card):
+    """Sixteen calls back to back on every rank's CUDA stream, cycling
+    through three sizes and the four stream ids (each id its own set of
+    slots and counters), each held bit for bit against the ring order."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_reduce_scatter,
+        ring_reduce_scatter_ring_order,
+    )
+
+    world = 4
+    sizes = [world * 256 * 4099, world * 256, world * 256 * 37]
+    rings, streams = ring_group(world)
+    try:
+        calls = []
+        for i in range(16):
+            xs = chip_smoke.ring_inputs(torch, world, sizes[i % 3],
+                                        torch.float32, seed=100 + i)
+            got = chip_smoke.ring_run(
+                torch, lambda x, ring, sid=i % 4: ring_reduce_scatter(
+                    x, ring, stream=sid), rings, xs, streams)
+            calls.append((xs, got))
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        for i, (xs, got) in enumerate(calls):
+            for g, w in zip(got, ring_reduce_scatter_ring_order(xs)):
+                assert torch.equal(g, w), i
+    finally:
+        close_group(rings)
+
+
+def test_reduce_scatter_raises_when_a_rank_never_arrives(card):
+    """Three of four ranks launch, with a 0.2 s wait bound: each of them
+    raises at its ring's check() within a second, the absent rank has no
+    error, and the card then serves a good call on a fresh ring."""
+    import time
+
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_reduce_scatter,
+    )
+
+    world = 4
+    rings, streams = ring_group(world, timeout_s=0.2)
+    fresh = None
+    try:
+        xs = chip_smoke.ring_inputs(torch, world, 1 << 20, torch.float32,
+                                    seed=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chip_smoke.ring_run(torch, ring_reduce_scatter, rings[:-1], xs[:-1],
+                            streams[:-1])
+        for ring in rings[:-1]:
+            with pytest.raises(RuntimeError, match="timed out"):
+                ring.check()
+        assert time.perf_counter() - t0 <= 1.0
+        rings[-1].check()  # the absent rank never waited
+        fresh = ring_group(world)
+        assert rs_exact(*fresh, xs) == world
+    finally:
+        close_group(rings)
+        if fresh is not None:
+            close_group(fresh[0])

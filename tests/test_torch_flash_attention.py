@@ -10,6 +10,15 @@ run. Inputs are numpy arrays from a seed, handed to both.
 Tolerances (the JAX package's own flash tests): output 2e-5 and lse 2e-5,
 both float32 with only the summation order differing; gradients 5e-4,
 since the backward sums over a whole sequence of products.
+
+``torch.exp`` of a float32 CPU tensor is MKL's ``vmsExp`` (high-accuracy
+mode). MKL sets VML up on its first call in a process. When that first
+call is a parallel one, entered by two OpenMP threads at once (the pool
+already exists after an MKL matmul), one thread's half has come back up
+to 1.5e-4 off (relative), in about one process in six; every later call
+is exact, and no JAX is needed for it. The port's forward then missed
+JAX by 7.75e-5. So this module makes MKL's first exp call itself, on one
+thread, when it is imported (:func:`set_up_mkl_vml`).
 """
 
 import jax
@@ -30,6 +39,15 @@ from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
 )
 
 torch.set_num_threads(2)
+
+
+def set_up_mkl_vml():
+    """MKL's first vector-math call of the process, made on one thread:
+    a tensor below ATen's parallel grain."""
+    torch.exp(torch.zeros(8))
+
+
+set_up_mkl_vml()
 
 O_TOL, LSE_TOL, GRAD_TOL = 2e-5, 2e-5, 5e-4
 BLOCK_Q, BLOCK_K = 128, 64

@@ -305,6 +305,70 @@ def test_nonfinite_step_leaves_params_and_moments_untouched():
     assert optimizer.lr == lr
 
 
+class _Poisoned(ClassificationTask):
+    """The port's classification loss plus ``value * Dense_2.bias[0]``:
+    the gradient gains ``value`` on that one element and nowhere else."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def compute_loss(self, model, batch, *, train):
+        loss, metrics = super().compute_loss(model, batch, train=train)
+        return loss + self.value * model.Dense_2.bias[0], metrics
+
+
+class _JaxPoisoned(jax_tasks.ClassificationTask):
+    """The JAX package's counterpart of :class:`_Poisoned`."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def compute_loss(self, model, params, model_state, batch, rng, *, train):
+        loss, metrics, ms = super().compute_loss(
+            model, params, model_state, batch, rng, train=train)
+        return loss + self.value * params["Dense_2"]["bias"][0], metrics, ms
+
+
+@pytest.mark.parametrize("value,bad", [(1e20, 0.0), (float("nan"), 1.0)],
+                         ids=["finite-1e20", "nan"])
+def test_skip_predicate_counts_nonfinite_elements_as_jax_does(value, bad):
+    """One gradient element of 1e20 overflows the float32 norm but is
+    finite: both packages apply the step (SGD: no squared moment to
+    overflow), to the same parameters within the float32 tolerance; a NaN
+    element makes both skip and leave the parameters as they were. The
+    learning rate is a power of two, so the 1e20 element's update rounds
+    once on either side."""
+    lr = 2.0 ** -4
+    model, jmodel, params = _simplenet_pair(0.0)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 784)).astype(np.float32)
+    y = (np.arange(8) % 10).astype(np.int32)
+    joptim = jax_opt.make_optimizer("sgd", lr)
+    jparams = _jax_tree(params)
+    jstate = JaxState(step=jnp.zeros((), jnp.int32), params=jparams,
+                      opt_state=joptim.init(jparams), model_state={},
+                      rng=jax.random.key(0))
+    jstep = jax_step.build_train_step(jmodel, _JaxPoisoned(value), joptim,
+                                      sentinels=False)
+    jstate, jmetrics = jstep(jstate, {"x": jnp.asarray(x),
+                                      "y": jnp.asarray(y)})
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model.parameters(), "sgd",
+                                                lr))
+    metrics = build_train_step(_Poisoned(value))(
+        state, {"x": torch.from_numpy(x), "y": torch.from_numpy(y).long()})
+    assert float(jmetrics["bad_step"]) == bad
+    assert float(metrics["bad_step"]) == bad
+    got = interop.simplenet_state_dict_to_flax(model.state_dict())
+    _assert_trees_close(got, jax.tree_util.tree_map(np.asarray,
+                                                    jstate.params),
+                        TOL["float32"]["param"], "param")
+    if bad:
+        _assert_trees_close(got, params, 0.0, "unchanged param")
+    else:
+        assert float(got["Dense_2"]["bias"][0]) < -1e18  # the step applied
+
+
 def test_refused_options_raise():
     model = SimpleNet(device="cpu")
     opt = make_optimizer(model.parameters())

@@ -56,6 +56,10 @@ from distributed_pytorch_example_tpu_torch.parallel import (
     WireConfig,
     data_parallel,
 )
+from distributed_pytorch_example_tpu_torch.parallel.wire import (
+    _scatter_parts,
+    _unscatter,
+)
 from distributed_pytorch_example_tpu_torch.runtime import distributed
 from distributed_pytorch_example_tpu_torch.train import (
     CausalLMTask,
@@ -162,6 +166,38 @@ def _fit(rank, world):
     return {"train_loss": history[0]["train_loss"], "params": _params(model)}
 
 
+def _nan_on_rank_1(rank, world):
+    """One bucketed ZeRO-1 step in which rank 1 alone adds NaN to one
+    gradient element of a sharded leaf, inside its own tile: each rank's
+    bad_step, whether its own tile saw the NaN, and whether its parameters
+    stayed as they were."""
+    model = GPT2(**KW, logits_mode="hidden", device="cpu", seed=0)
+    part = data_parallel(world, dp_shard_opt_state=True,
+                         opt_shard_min_size=MIN_SHARD,
+                         wire=WireConfig(bucket_bytes=2048))
+    step = build_train_step(CausalLMTask(), partitioner=part)
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model.parameters(), "sgd",
+                                                LR["sgd"]))
+    update = step.sharded(state)
+    i = next(i for i, d in enumerate(update.dims) if d is not None)
+    leaf, param, dim = update.leaves[i], update.params[i], update.dims[i]
+    rows, chunk_shape = _scatter_parts(torch.zeros(leaf.to_jax(param).shape),
+                                       dim, world)
+    rows = rows.clone()
+    rows[1, 0] = float("nan")
+    poison = leaf.from_jax(_unscatter(rows, dim, chunk_shape))
+    if rank == 1:
+        param.register_hook(lambda g: g + poison)
+    before = _params(model)
+    metrics = step(state, _local(_batches()[0], rank, world))
+    after = _params(model)
+    return {"bad_step": float(metrics["bad_step"]),
+            "tile_has_nan": bool(update.tiles[i].grad.isnan().any()),
+            "unchanged": all(np.array_equal(after[k], v)
+                             for k, v in before.items())}
+
+
 def _worker(rank, port, results):
     torch.set_num_threads(1)
     config = distributed.DistributedConfig(WORLD, rank, f"localhost:{port}")
@@ -169,6 +205,7 @@ def _worker(rank, port, results):
     try:
         out = {name: _run_case(name, rank, WORLD) for name in CASES}
         out["fit"] = _fit(rank, WORLD)
+        out["nan-on-rank-1"] = _nan_on_rank_1(rank, WORLD)
         results.put((rank, out))
     finally:
         distributed.shutdown()
@@ -380,6 +417,15 @@ def test_trainer_fit_zero1_with_accumulation_matches_one_process(
         assert abs(got["train_loss"] - want["train_loss"]) <= 1e-6
         _assert_params_close(got["params"], want["params"], 1e-6,
                              f"fit rank {rank}")
+
+
+def test_a_nan_on_one_rank_skips_the_step_on_every_rank(zero1_results):
+    """The non-finite count is summed across ranks: rank 0's own tile is
+    finite, yet it skips with rank 1, and neither changes a parameter."""
+    got = [zero1_results[r]["nan-on-rank-1"] for r in range(WORLD)]
+    assert [g["tile_has_nan"] for g in got] == [False, True]
+    for rank, g in enumerate(got):
+        assert g["bad_step"] == 1.0 and g["unchanged"], (rank, g)
 
 
 @pytest.mark.parametrize("env,cards,backend", [
