@@ -16,8 +16,8 @@ last line:
    card at the main paths' shapes, then time kernel, plain version and one
    library call, beside the least time the card could take (the bound):
    the paged-decode kernel (K2), the flash-attention forward and backward
-   (K1), then the ring all-gather and reduce-scatter (K3a, K3b) with 2, 4
-   and 8 in-process ranks, each on its own CUDA stream, at one 4 MiB
+   (K1), then the all-gather and reduce-scatter pushes (K3a, K3b) with 2,
+   4 and 8 in-process ranks, each on its own CUDA stream, at one 4 MiB
    gradient bucket and at the whole GPT-2 124M gradient (K3b also bit for
    bit against the plain sum in the TPU ring's order);
 4. serve  — GPT-2 124M at full width (random weights from a seed) through

@@ -1,24 +1,74 @@
-// Ring all-gather (K3a) and one-shot reduce-scatter (K3b) over peer
-// memory, for sm_90a.
+// All-gather (K3a) and reduce-scatter (K3b) over peer memory, for sm_90a:
+// both one-shot pushes across the H100's all-to-all NVLink.
 //
 // Both replace TPU kernels of distributed_pytorch_example_tpu/ops/pallas/
 // collectives.py: `_ring_all_gather` -> `_ag_kernel` (K3a) and
-// `_ring_reduce_scatter` -> `_rs_kernel` (K3b).
+// `_ring_reduce_scatter` -> `_rs_kernel` (K3b). The TPU kernels walk a
+// bidirectional ring of neighbours over ICI. On an HGX H100 every card
+// reaches every other through NVSwitch at the full NVLink rate, so there
+// is no ring to walk: every rank pushes what rank c needs straight into
+// c's workspace, and c finishes the collective locally.
 //
 // What replaces the TPU's remote DMA plus semaphore: each rank owns one
-// workspace in device memory (flags, then staging slots), and every rank
-// holds a table of every rank's workspace base pointer (CUDA IPC between
-// processes, raw pointers between in-process ranks on one card). A
-// transfer is two steps. The sender's CTA stores into the receiver's
-// staging slot through the peer pointer; after __syncthreads() and a
-// system fence (__threadfence_system), one thread stores the slot's epoch
-// into the receiver's `full` flag with st.release.sys; the receiver waits
-// with ld.acquire.sys. After reading the slot, the receiver stores the epoch
-// into the sender's `ack` flag, and a sender waits for the ack of a slot's
-// previous use before filling it again. Flags hold monotonic epochs,
-// derived from a counter that each CTA keeps in its own workspace, so no
-// flag is ever reset; every rank issues the same collectives in the same
-// order, so the counters agree.
+// workspace in device memory, and every rank holds a table of every
+// rank's workspace base pointer (CUDA IPC between processes, raw pointers
+// between in-process ranks on one card). The data goes through the
+// receiver's workspace, not straight into its output: a peer cannot reach
+// another process's caching-allocator tensors without an IPC handle per
+// call, and the workspace is the only memory the ranks share.
+//
+// The protocol, the same for both kernels (run_pieces). CTA k of rank me
+// takes pieces k, k + G, k + 2G, ... of the payload (G the grid); a
+// counter in its own workspace numbers its pieces g across calls, and
+// piece g uses slot parity g % 2 and epoch g / 2 + 1.
+//   - Push: the CTA waits until every receiver has acked the slot's
+//     previous use, stores its piece with 16-byte vectors into every
+//     receiver c's slot for (set, this CTA, sender offset j = me - c,
+//     parity), then, after __syncthreads and a system fence
+//     (__threadfence_system), releases one `full` flag per receiver with
+//     st.release.sys. Stores over NVLink are posted: no round trip per
+//     piece.
+//   - Finish: the CTA waits (ld.acquire.sys) for the D - 1 `full` flags of
+//     its piece, reads the slots through __ldcg (past L1, whose lines may
+//     predate the peers' stores), finishes the piece and releases one
+//     `ack` per sender.
+//   - Pipeline: a CTA pushes piece i + 1 before it finishes piece i (two
+//     slots per sender and CTA). Payloads larger than the slots (the whole
+//     GPT-2 gradient) go through in pieces.
+// Flags hold monotonic epochs, so no flag is ever reset; every rank issues
+// the same collectives in the same order with the same grid, so the
+// counters agree. There is no barrier at entry: the ack of a slot's
+// previous use orders the calls.
+//
+// K3a: rank r's payload x (n bytes) lands in row r of every rank's out
+// (D, n). The push reads each piece of x once and stores it into the
+// D - 1 receivers' slots and into the sender's own row; the finish copies
+// each sender's slot into its row. No rank forwards another rank's data.
+// It moves bytes, so it takes any dtype; a piece is at least 4 KiB.
+//
+// K3b keeps the TPU kernel's result bit for bit, not its ring. Rank c gets
+// out (n,) = the float32 sum over ranks r of x_r = parts_r[c], cast back
+// to T, added in the ring's order (indices mod D):
+//   low half [0, n/2):   ((x_{c+1} + x_{c+2}) + ...) + x_c
+//   high half [n/2, n):  ((x_{c-1} + x_{c-2}) + ...) + x_c
+// the clockwise partial seeded at c + 1 with an own-part add at every hop,
+// and its counter-clockwise mirror. The push stores parts[c] in T (bf16
+// stays bf16 on the wire) into rank c's slot; the finish sums the slots
+// and the own part in float32 in the order above and writes out. A piece
+// is at least 256 elements.
+//
+// What bounded the ring versions of K3a and K3b, and what this
+// design does about it:
+//   1. 16 CTAs on 132 SMs: the grid comes from the SM count and the
+//      kernels' occupancy (the co-residency rule below).
+//   2. D - 1 chained hops per slot part, each an ack wait, a staged copy
+//      into the neighbour, a fence and a flag, a wait on its own flag and
+//      a copy out, with no two pieces of a CTA in flight: one push and one
+//      wait per piece, whatever D, and two pieces in flight per CTA.
+//   3. A neighbour barrier per CTA per call: none.
+//   4. A flag round trip costs a time slice between processes that share
+//      a card: a call whose payload fits the slots waits for each peer
+//      once per CTA, instead of once per hop and piece plus the barrier.
 //
 // Every wait is bounded with %globaltimer (`timeout_ns`, 10 s by
 // default): a wait that expires writes an error code into the caller's
@@ -28,76 +78,29 @@
 // not a hung card.
 //
 // Sets: collective ids 2 * stream (gather) and 2 * stream + 1 (scatter),
-// stream taken modulo 4, each with its own staging slots and flags, so
-// collectives of distinct stream ids can be in flight at once.
-//
-// K3a keeps the TPU kernel's ring. The local payload splits into two
-// halves; the low half travels clockwise (to rank me + 1), the high half
-// counter-clockwise; at hop h rank me forwards chunk (me - h) clockwise and
-// chunk (me + h) counter-clockwise, through the receiver's slot (slots
-// alternate by hop, the TPU kernel's double buffer), after a neighbour
-// barrier per call (_ag_kernel lines 107-118). Each of its 8 CTAs per
-// direction owns one contiguous range of every direction's half-payload
-// and one fixed part of every staging slot (kCtaSlotBytes), which only its
-// own flags guard.
-//
-// K3b keeps the TPU kernel's result bit for bit, not its ring. Rank c gets
-// out (n,) = the float32 sum over ranks r of x_r = parts_r[c], cast back
-// to T, added in the ring's order (indices mod D):
-//   low half [0, n/2):   ((x_{c+1} + x_{c+2}) + ...) + x_c
-//   high half [n/2, n):  ((x_{c-1} + x_{c-2}) + ...) + x_c
-// the clockwise partial seeded at c + 1 with an own-part add at every hop,
-// and its counter-clockwise mirror. On an HGX H100 every card reaches
-// every other through NVSwitch at the full NVLink rate, so there is no
-// ring to walk: every rank pushes parts[c] straight to rank c, and c adds
-// what it received in that order.
-//   - Push: a CTA reads its own parts[c] piece and stores it in T (bf16
-//     stays bf16 on the wire) with 16-byte vectors into rank c's slot for
-//     (this sender, this CTA, piece parity), then releases one epoch flag
-//     per receiver. Stores over NVLink are posted: no round trip per piece.
-//     Pushing, not pulling, because a peer cannot read another process's
-//     caching-allocator tensors without an IPC handle per call; the
-//     workspace is the only memory the ranks share.
-//   - Reduce: the CTA waits for the D - 1 flags of a piece, sums its slots
-//     (__ldcg, past L1, whose lines may predate the peers' stores) and its
-//     own part in float32 in the order above, writes out and releases one
-//     ack per sender.
-//   - Pipeline: a CTA pushes piece i + 1 before it reduces piece i (two
-//     slots per sender and CTA), and takes pieces k, k + G, k + 2G, ...
-//     Payloads larger than the slots (the whole GPT-2 gradient) go through
-//     in pieces; a piece is at least 256 elements.
-// What bounded the ring version, and what this design does about it:
-//   1. 16 CTAs on 132 SMs: the grid now comes from the SM count and the
-//      kernel's occupancy (the co-residency rule below).
-//   2. D - 1 chained hops, each an ack wait, a staged copy, a fence and a
-//      flag, with no two pieces of a CTA in flight: one hop and one wait
-//      per element, whatever D, and two pieces in flight per CTA.
-//   3. A neighbour barrier per CTA per call, and float32 partials on the
-//      wire: no barrier (the ack of a slot's previous use orders calls),
-//      and parts cross in T.
-//   4. A flag round trip costs a time slice between processes that share
-//      a card: a call whose chunk fits the slots waits for each peer once
-//      per CTA, instead of once per hop and piece plus the barrier.
+// stream taken modulo 4. Each kind has its own region of the workspace
+// and each id its own counters, flags and slots there, so collectives of
+// distinct ids can be in flight at once.
 // Co-residency rule: every CTA of every rank in flight must be resident
 // at once, since each spins on flags that the others set; a rank whose
 // grid filled the SMs would starve the kernels it waits on, and the wait
 // would time out. R ranks may share one card at once (in-process ranks:
 // R = D; a ring over processes: R = 1, since processes that share a card
 // run in separate contexts, which time-slice) and each may have all 8
-// collective ids in flight on distinct CUDA streams, so one K3b launch
-// takes at most SMs x occupancy / (8 R) CTAs. The wrapper registers R per
-// ring (dpx_ring_card_ranks); an unregistered ring counts R = D. K3b is
-// built to 32 registers a thread (kMinCtas), so its occupancy is 8 CTAs of
-// 256 threads per SM, as K3a's, and a K3a launch (16 CTAs) fits the same
-// share up to R = 8.
-// Slot layout: a slot's place and size depend on (set, CTA, sender,
+// collective ids in flight on distinct CUDA streams, so one launch of
+// either kernel takes at most SMs x occupancy / (8 R) CTAs, with the
+// least occupancy of the three kernels. The wrapper registers R per ring
+// (dpx_ring_card_ranks); an unregistered ring counts R = D. All three are
+// built to 32 registers a thread (kMinCtas): 8 CTAs of 256 threads per
+// SM.
+// Slot layout: a slot's place and size depend on (kind, set, CTA, sender,
 // parity), the ring (D, R) and the card, never on n, so calls of changing
-// size never share a slot part under another CTA's flags.
+// size never share a slot under another CTA's flags.
 //
 // Bound: across cards, the bytes over NVLink at 450 GB/s each way, with
-// (D - 1) / D of the payload into each rank (K3b) or out of each
-// direction's link (K3a); for in-process ranks on one card, the card's
-// memory traffic, each rank's input read once and output written once at
+// (D - 1) / D of the payload into each rank (K3b) or (D - 1) payloads out
+// of each rank (K3a); for in-process ranks on one card, the card's memory
+// traffic, each rank's input read once and output written once at
 // 3.35 TB/s.
 
 #include <cuda_bf16.h>
@@ -115,50 +118,42 @@ typedef unsigned long long u64;
 
 constexpr int kSets = 8;    // collective ids
 constexpr int kThreads = 256;
+constexpr int kMinCtas = 8;  // per SM: at most 32 registers a thread
+constexpr int kCopyUnroll = 4;  // 16-byte vectors in flight per thread
 constexpr int kFlagStride = 16;  // u64 words per flag: one 128-byte line
 
-// K3a's region: flags, then staging, for the 4 gather sets (set >> 1)
-constexpr int kAgSets = 4;
-constexpr int kDirs = 2;
-constexpr int kSlots = 2;
-constexpr int kCtas = 8;  // CTAs per direction
-constexpr long long kSlotBytes = 1LL << 20;
-constexpr long long kCtaSlotBytes = kSlotBytes / kCtas;  // one CTA's part
-enum { kFull, kAck, kBarLeft, kBarRight, kHops, kCalls, kKinds };
-constexpr long long kFlagBytes =
-    (long long)kAgSets * kDirs * kCtas * kSlots * kKinds * kFlagStride * 8;
-constexpr long long kStagingOffset = (kFlagBytes + 4095) / 4096 * 4096;
-constexpr long long kAgBytes =
-    kStagingOffset + (long long)kAgSets * kDirs * kSlots * kSlotBytes;
-
-// K3b's region, for the 4 scatter sets (set >> 1): per-CTA piece
-// counters, `full` flags, `ack` flags, then staging
-constexpr int kRsSets = 4;
-constexpr int kRsSlots = 2;      // per (sender, CTA): pieces in flight
-constexpr int kRsFlags = 4096;   // flags of each kind per set
-constexpr int kRsMaxCtas = kRsFlags / kRsSlots;
-constexpr long long kRsSetBytes = 32LL << 20;  // staging per set
-constexpr long long kRsMinSlotBytes = 4096;
-constexpr long long kQuantum = 256;  // piece granularity, elements
-constexpr long long kRsCounterOffset = kAgBytes;
-constexpr long long kRsFullOffset =
-    kRsCounterOffset + (long long)kRsSets * kRsMaxCtas * 8;
-constexpr long long kRsAckOffset =
-    kRsFullOffset + (long long)kRsSets * kRsFlags * kFlagStride * 8;
-constexpr long long kRsStagingOffset =
-    kRsAckOffset + (long long)kRsSets * kRsFlags * kFlagStride * 8;
-constexpr long long kWorkspaceBytes =
-    kRsStagingOffset + (long long)kRsSets * kRsSetBytes;
+// One region per kind (gather, then scatter), each for its 4 sets
+// (set >> 1): per-CTA piece counters, `full` flags, `ack` flags, then
+// staging
+constexpr int kKindSets = 4;
+constexpr int kSlots = 2;       // per (sender, CTA): pieces in flight
+constexpr int kFlags = 4096;    // flags of each kind per set
+constexpr int kMaxCtas = kFlags / kSlots;
+constexpr long long kSetBytes = 32LL << 20;  // staging per set
+constexpr long long kMinSlotBytes = 4096;
+constexpr long long kQuantum = 256;    // K3b piece granularity, elements
+constexpr long long kAgQuantum = 256;  // K3a's, 16-byte vectors (4 KiB)
+constexpr long long kFullOffset = (long long)kKindSets * kMaxCtas * 8;
+constexpr long long kAckOffset =
+    kFullOffset + (long long)kKindSets * kFlags * kFlagStride * 8;
+constexpr long long kStagingOffset =
+    kAckOffset + (long long)kKindSets * kFlags * kFlagStride * 8;
+constexpr long long kRegionBytes =
+    kStagingOffset + (long long)kKindSets * kSetBytes;
+constexpr long long kWorkspaceBytes = 2 * kRegionBytes;
 
 // error codes written into `err`
-enum { kErrBarrier = 1, kErrAck = 2, kErrFull = 3 };
+enum { kErrAck = 2, kErrFull = 3 };
 
-struct RingArgs {
-  const u64* peers;  // world workspace base pointers (device)
-  int rank, world, set;
-  const void* in;
-  void* out;
-  long long n;  // all-gather: local payload bytes
+struct PushArgs {
+  const u64* peers;      // world workspace base pointers (device)
+  int rank, world, set;  // set: the kind's set, 0..3
+  long long region;      // the kind's region in every workspace, bytes
+  const void* in;        // K3a: x; K3b: parts (world, n) of T
+  void* out;             // K3a: (world, n vectors); K3b: (n,) of T
+  long long n;           // K3a: 16-byte vectors of x; K3b: chunk elements
+  long long piece;       // units of n per piece
+  long long slot_bytes;  // one slot's bytes (fixed per ring and card)
   int* err;
   long long timeout_ns;
 };
@@ -181,22 +176,6 @@ __device__ __forceinline__ void st_release(u64* p, u64 v) {
                :: "l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ u64* flag(char* base, int set, int dir, int cta,
-                                     int slot, int kind) {
-  const long long idx =
-      ((((long long)set * kDirs + dir) * kCtas + cta) * kSlots + slot) *
-          kKinds + kind;
-  return reinterpret_cast<u64*>(base) + idx * kFlagStride;
-}
-
-// CTA `cta`'s part of a staging slot
-__device__ __forceinline__ char* staging(char* base, int set, int dir,
-                                         int slot, int cta) {
-  return base + kStagingOffset +
-         (((long long)set * kDirs + dir) * kSlots + slot) * kSlotBytes +
-         cta * kCtaSlotBytes;
-}
-
 // One thread's bounded wait for *f >= want: false when this rank has
 // already failed, or when the wait times out, which records `code` in
 // `err` (first error wins).
@@ -213,153 +192,196 @@ __device__ bool spin_until(const u64* f, u64 want, int* err,
   return true;
 }
 
-// CTA-wide bounded wait for *f >= want: thread 0 spins, and every thread
-// gets its result.
-__device__ bool cta_wait(const u64* f, u64 want, const RingArgs& a,
-                         int code) {
+// rank's region of this kind
+__device__ __forceinline__ char* workspace(const PushArgs& a, int rank) {
+  return reinterpret_cast<char*>(a.peers[rank]) + a.region;
+}
+
+// index of the (CTA, peer offset j in 1..D-1, parity) slot and its flags;
+// the sender is rank receiver + j
+__device__ __forceinline__ long long slot_index(const PushArgs& a, int cta,
+                                                int j, int parity) {
+  return ((long long)cta * (a.world - 1) + (j - 1)) * kSlots + parity;
+}
+
+__device__ __forceinline__ u64* flag_at(const PushArgs& a, char* region,
+                                        long long kind_offset,
+                                        long long idx) {
+  return reinterpret_cast<u64*>(region + kind_offset) +
+         ((long long)a.set * kFlags + idx) * kFlagStride;
+}
+
+__device__ __forceinline__ u64* counter(const PushArgs& a, char* region,
+                                        int cta) {
+  return reinterpret_cast<u64*>(region) + (long long)a.set * kMaxCtas + cta;
+}
+
+__device__ __forceinline__ char* slot_at(const PushArgs& a, char* region,
+                                         long long idx) {
+  return region + kStagingOffset + a.set * kSetBytes + idx * a.slot_bytes;
+}
+
+// CTA-wide bounded wait: for every j in 1..D-1 one thread spins until
+// the flag flag_of(j) >= want. True on every thread when all arrived.
+template <typename FlagOf>
+__device__ bool cta_wait_peers(const PushArgs& a, FlagOf flag_of, u64 want,
+                               int code) {
   int good = 1;
-  if (threadIdx.x == 0)
-    good = spin_until(f, want, a.err, a.timeout_ns, code);
+  for (int j = 1 + threadIdx.x; good && j < a.world; j += kThreads)
+    good = spin_until(flag_of(j), want, a.err, a.timeout_ns, code);
   return __syncthreads_and(good);
 }
 
-// every thread's stores to the peer become visible before the flag
-__device__ __forceinline__ void cta_signal(u64* f, u64 v) {
-  __threadfence_system();
+// The CTA's loads and stores so far, then __syncthreads, a system fence
+// and flag_of(j) = v (release) by one thread per j in 1..D-1.
+template <typename FlagOf>
+__device__ void cta_release_peers(const PushArgs& a, FlagOf flag_of, u64 v) {
   __syncthreads();
-  if (threadIdx.x == 0) st_release(f, v);
-}
-
-// this CTA's [a, b) share of `units` work units
-__device__ __forceinline__ void cta_range(long long units, int cta,
-                                          long long* a, long long* b) {
-  const long long per = (units + kCtas - 1) / kCtas;
-  *a = min(units, (long long)cta * per);
-  *b = min(units, *a + per);
-}
-
-// bytes, a multiple of 16 at 16-byte aligned addresses; `from_peer` reads
-// past L1, whose lines may predate the peer's stores
-__device__ __forceinline__ void copy16(char* dst, const char* src,
-                                       long long bytes, bool from_peer) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  const long long n = bytes >> 4;
-  for (long long i = threadIdx.x; i < n; i += kThreads) {
-    d[i] = from_peer ? __ldcg(s + i) : s[i];
+  for (int j = 1 + threadIdx.x; j < a.world; j += kThreads) {
+    __threadfence_system();
+    st_release(flag_of(j), v);
   }
 }
 
-// Shared prologue: bail out if this rank already failed, read this CTA's
-// hop and call counters, and run the neighbour barrier of this call.
-struct Ring {
-  int dir, cta, me, D;
-  char *wme, *down, *up;  // mine; where my sends land; who sends to me
-  u64 hops, call;
-};
-
-__device__ bool ring_enter(const RingArgs& a, Ring* r) {
-  r->dir = blockIdx.x / kCtas;
-  r->cta = blockIdx.x % kCtas;
-  r->me = a.rank;
-  r->D = a.world;
-  const int right = (a.rank + 1) % a.world;
-  const int left = (a.rank + a.world - 1) % a.world;
-  r->wme = reinterpret_cast<char*>(a.peers[a.rank]);
-  char* wright = reinterpret_cast<char*>(a.peers[right]);
-  char* wleft = reinterpret_cast<char*>(a.peers[left]);
-  r->down = r->dir == 0 ? wright : wleft;
-  r->up = r->dir == 0 ? wleft : wright;
-  __shared__ u64 s_hops, s_calls;
+// The pipeline of both kernels: CTA k takes pieces k, k + G, ... and
+// pushes piece i + 1 before it finishes piece i. push(parity, off) fills
+// every receiver's slot (this CTA, parity) from the piece at offset `off`
+// (units of n); finish(parity, off) consumes every sender's.
+template <typename Push, typename Finish>
+__device__ void run_pieces(const PushArgs& a, Push push, Finish finish) {
+  const int D = a.world, me = a.rank, cta = blockIdx.x, grid = gridDim.x;
+  char* wme = workspace(a, me);
+  __shared__ u64 s_count;
   __shared__ int s_bail;
   if (threadIdx.x == 0) {
     s_bail = *(volatile int*)a.err != 0;
-    s_hops = *(volatile u64*)flag(r->wme, a.set, r->dir, r->cta, 0, kHops);
-    s_calls = *(volatile u64*)flag(r->wme, a.set, r->dir, r->cta, 0, kCalls);
+    s_count = *(volatile u64*)counter(a, wme, cta);
   }
   __syncthreads();
-  if (s_bail) return false;
-  r->hops = s_hops;
-  r->call = s_calls + 1;
-  if (threadIdx.x == 0) {
-    // I am my right neighbour's left neighbour, and my left's right
-    st_release(flag(wright, a.set, r->dir, r->cta, 0, kBarLeft), r->call);
-    st_release(flag(wleft, a.set, r->dir, r->cta, 0, kBarRight), r->call);
-  }
-  return cta_wait(flag(r->wme, a.set, r->dir, r->cta, 0, kBarLeft), r->call,
-                  a, kErrBarrier) &&
-         cta_wait(flag(r->wme, a.set, r->dir, r->cta, 0, kBarRight), r->call,
-                  a, kErrBarrier);
-}
-
-__device__ void ring_leave(const RingArgs& a, const Ring& r, u64 hops) {
-  if (threadIdx.x == 0) {
-    *(volatile u64*)flag(r.wme, a.set, r.dir, r.cta, 0, kHops) = hops;
-    *(volatile u64*)flag(r.wme, a.set, r.dir, r.cta, 0, kCalls) = r.call;
-  }
-}
-
-// K3a: out (D, n) bytes gets every rank's local payload x (n bytes).
-__global__ void __launch_bounds__(kThreads)
-ring_all_gather_kernel(RingArgs a) {
-  Ring r;
-  if (!ring_enter(a, &r)) return;
-  const int D = r.D, me = r.me, dir = r.dir;
-  const long long nbytes = a.n, half = nbytes / 2, hoff = dir * half;
-  const char* x = reinterpret_cast<const char*>(a.in);
-  char* out = reinterpret_cast<char*>(a.out);
-  long long ua, ub;
-  cta_range(half >> 4, r.cta, &ua, &ub);
-  const long long beg = ua << 4, end = ub << 4;
-  // seed my own row: no hop reads it (hop 0 sends from x)
-  copy16(out + me * nbytes + hoff + beg, x + hoff + beg, end - beg, false);
-  u64 g = r.hops;
-  for (long long po = beg; po < end; po += kCtaSlotBytes) {
-    const long long len = min(kCtaSlotBytes, end - po);
-    for (int h = 0; h < D - 1; ++h, ++g) {
-      const int slot = (int)(g & 1);
-      const u64 ep = (g >> 1) + 1;
-      const int c_send = dir == 0 ? (me - h + D) % D : (me + h) % D;
-      const int c_recv =
-          dir == 0 ? (me - 1 - h + 2 * D) % D : (me + 1 + h) % D;
-      const char* src =
-          (h == 0 ? x + hoff : out + c_send * nbytes + hoff) + po;
-      if (!cta_wait(flag(r.wme, a.set, dir, r.cta, slot, kAck), ep - 1, a,
-                    kErrAck))
+  if (s_bail) return;
+  const u64 g0 = s_count;
+  const long long pieces = (a.n + a.piece - 1) / a.piece;
+  const long long mine = (pieces - cta + grid - 1) / grid;
+  for (long long i = 0; i <= mine; ++i) {
+    if (i < mine) {
+      const u64 g = g0 + i;
+      const int parity = (int)(g % kSlots);
+      // every receiver me - j has read this slot's previous piece
+      if (!cta_wait_peers(
+              a,
+              [&](int j) {
+                return flag_at(a, wme, kAckOffset,
+                               slot_index(a, cta, j, parity));
+              },
+              g / kSlots, kErrAck))
         return;
-      copy16(staging(r.down, a.set, dir, slot, r.cta), src, len, false);
-      cta_signal(flag(r.down, a.set, dir, r.cta, slot, kFull), ep);
-      if (!cta_wait(flag(r.wme, a.set, dir, r.cta, slot, kFull), ep, a,
-                    kErrFull))
+      push(parity, (cta + i * grid) * a.piece);
+      cta_release_peers(
+          a,
+          [&](int j) {
+            return flag_at(a, workspace(a, (me - j + D) % D), kFullOffset,
+                           slot_index(a, cta, j, parity));
+          },
+          g / kSlots + 1);
+    }
+    if (i > 0) {
+      const u64 g = g0 + i - 1;
+      const int parity = (int)(g % kSlots);
+      if (!cta_wait_peers(
+              a,
+              [&](int j) {
+                return flag_at(a, wme, kFullOffset,
+                               slot_index(a, cta, j, parity));
+              },
+              g / kSlots + 1, kErrFull))
         return;
-      copy16(out + c_recv * nbytes + hoff + po,
-             staging(r.wme, a.set, dir, slot, r.cta), len, true);
-      __syncthreads();
-      if (threadIdx.x == 0)
-        st_release(flag(r.up, a.set, dir, r.cta, slot, kAck), ep);
+      finish(parity, (cta + (i - 1) * grid) * a.piece);
+      // the slots are read: each sender me + j may refill its own
+      cta_release_peers(
+          a,
+          [&](int j) {
+            return flag_at(a, workspace(a, (me + j) % D), kAckOffset,
+                           slot_index(a, cta, j, parity));
+          },
+          g / kSlots + 1);
     }
   }
-  ring_leave(a, r, g);
+  if (threadIdx.x == 0) *(volatile u64*)counter(a, wme, cta) = g0 + mine;
+}
+
+// dst[v] = src[v] for the 16-byte vectors v in [0, nv), kCopyUnroll in
+// flight per thread; kFromPeer reads past L1, whose lines may predate a
+// peer's stores
+template <bool kFromPeer>
+__device__ __forceinline__ void copy_vectors(uint4* dst, const uint4* src,
+                                             int nv) {
+  for (int v0 = threadIdx.x; v0 < nv; v0 += kThreads * kCopyUnroll) {
+    uint4 x[kCopyUnroll];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      const int v = v0 + u * kThreads;
+      if (v < nv) x[u] = kFromPeer ? __ldcg(src + v) : src[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      const int v = v0 + u * kThreads;
+      if (v < nv) dst[v] = x[u];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3a
+// ---------------------------------------------------------------------------
+
+// out (D, n vectors) gets every rank's x (n vectors) in its row.
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+all_gather_kernel(PushArgs a) {
+  const int D = a.world, me = a.rank, cta = blockIdx.x;
+  const uint4* x = reinterpret_cast<const uint4*>(a.in);
+  uint4* out = reinterpret_cast<uint4*>(a.out);
+  run_pieces(
+      a,
+      // x's piece, read once, into my row and every receiver me - j's slot
+      [&](int parity, long long off) {
+        const int nv = (int)min(a.piece, a.n - off);
+        for (int v0 = threadIdx.x; v0 < nv; v0 += kThreads * kCopyUnroll) {
+          uint4 r[kCopyUnroll];
+#pragma unroll
+          for (int u = 0; u < kCopyUnroll; ++u) {
+            const int v = v0 + u * kThreads;
+            if (v < nv) r[u] = x[off + v];
+          }
+          for (int j = 0; j < D; ++j) {  // j = 0: my own row
+            uint4* dst =
+                j == 0 ? out + me * a.n + off
+                       : reinterpret_cast<uint4*>(slot_at(
+                             a, workspace(a, (me - j + D) % D),
+                             slot_index(a, cta, j, parity)));
+#pragma unroll
+            for (int u = 0; u < kCopyUnroll; ++u) {
+              const int v = v0 + u * kThreads;
+              if (v < nv) dst[v] = r[u];
+            }
+          }
+        }
+      },
+      // each sender me + j's piece, from my slot, into its row
+      [&](int parity, long long off) {
+        const int nv = (int)min(a.piece, a.n - off);
+        char* wme = workspace(a, me);
+        for (int j = 1; j < D; ++j)
+          copy_vectors<true>(
+              out + (long long)((me + j) % D) * a.n + off,
+              reinterpret_cast<const uint4*>(
+                  slot_at(a, wme, slot_index(a, cta, j, parity))),
+              nv);
+      });
 }
 
 // ---------------------------------------------------------------------------
 // K3b
 // ---------------------------------------------------------------------------
-
-struct RsArgs {
-  const u64* peers;  // world workspace base pointers (device)
-  int rank, world, set;  // set: the scatter set, 0..3
-  const void* in;        // parts (world, n) of T
-  void* out;             // (n,) of T
-  long long n;           // chunk elements, a multiple of kQuantum
-  long long piece;       // elements per piece, a multiple of kQuantum
-  long long slot_bytes;  // one slot's bytes (fixed per ring and card)
-  int* err;
-  long long timeout_ns;
-};
-
-constexpr int kMinCtas = 8;  // per SM: at most 32 registers a thread
-constexpr int kCopyUnroll = 4;  // 16-byte vectors in flight per thread
 
 // 16 bytes of T, as floats; kUnroll of them in flight per thread in the
 // sum, within kMinCtas's register budget
@@ -405,104 +427,6 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ char* workspace(const RsArgs& a, int rank) {
-  return reinterpret_cast<char*>(a.peers[rank]);
-}
-
-// index of the (CTA, peer offset j in 1..D-1, parity) slot and its flags;
-// the sender is rank receiver + j
-__device__ __forceinline__ long long rs_index(const RsArgs& a, int cta,
-                                              int j, int parity) {
-  return ((long long)cta * (a.world - 1) + (j - 1)) * kRsSlots + parity;
-}
-
-__device__ __forceinline__ u64* rs_flag(char* base, long long kind_offset,
-                                        int set, long long idx) {
-  return reinterpret_cast<u64*>(base + kind_offset) +
-         ((long long)set * kRsFlags + idx) * kFlagStride;
-}
-
-__device__ __forceinline__ u64* rs_counter(char* base, int set, int cta) {
-  return reinterpret_cast<u64*>(base + kRsCounterOffset) +
-         (long long)set * kRsMaxCtas + cta;
-}
-
-__device__ __forceinline__ char* rs_slot(const RsArgs& a, char* base,
-                                         long long idx) {
-  return base + kRsStagingOffset + a.set * kRsSetBytes + idx * a.slot_bytes;
-}
-
-// CTA-wide bounded wait: for every j in 1..D-1 one thread spins until
-// the flag flag_of(j) >= want. True on every thread when all arrived.
-template <typename FlagOf>
-__device__ bool cta_wait_peers(const RsArgs& a, FlagOf flag_of, u64 want,
-                               int code) {
-  int good = 1;
-  for (int j = 1 + threadIdx.x; good && j < a.world; j += kThreads)
-    good = spin_until(flag_of(j), want, a.err, a.timeout_ns, code);
-  return __syncthreads_and(good);
-}
-
-// The CTA's loads and stores so far, then __syncthreads, a system fence
-// and flag_of(j) = v (release) by one thread per j in 1..D-1.
-template <typename FlagOf>
-__device__ void cta_release_peers(const RsArgs& a, FlagOf flag_of, u64 v) {
-  __syncthreads();
-  for (int j = 1 + threadIdx.x; j < a.world; j += kThreads) {
-    __threadfence_system();
-    st_release(flag_of(j), v);
-  }
-}
-
-// Push the piece at chunk offset `off` (CTA piece count g) to every
-// receiver c = me - j: its parts[c] slice into c's slot (this CTA, j).
-template <typename T>
-__device__ bool rs_push(const RsArgs& a, u64 g, long long off) {
-  const int D = a.world, me = a.rank, cta = blockIdx.x;
-  const int parity = (int)(g % kRsSlots);
-  const u64 ep = g / kRsSlots + 1;
-  char* wme = workspace(a, me);
-  // every receiver has read this slot's previous piece
-  if (!cta_wait_peers(
-          a,
-          [&](int j) {
-            return rs_flag(wme, kRsAckOffset, a.set,
-                           rs_index(a, cta, j, parity));
-          },
-          ep - 1, kErrAck))
-    return false;
-  const int nv = (int)(min(a.piece, a.n - off) * sizeof(T) / 16);
-  const T* parts = reinterpret_cast<const T*>(a.in);
-  for (int j = 1; j < D; ++j) {
-    const int c = (me - j + D) % D;
-    const uint4* src =
-        reinterpret_cast<const uint4*>(parts + c * a.n + off);
-    uint4* dst = reinterpret_cast<uint4*>(
-        rs_slot(a, workspace(a, c), rs_index(a, cta, j, parity)));
-    for (int v0 = threadIdx.x; v0 < nv; v0 += kThreads * kCopyUnroll) {
-      uint4 x[kCopyUnroll];
-#pragma unroll
-      for (int u = 0; u < kCopyUnroll; ++u) {
-        const int v = v0 + u * kThreads;
-        if (v < nv) x[u] = src[v];
-      }
-#pragma unroll
-      for (int u = 0; u < kCopyUnroll; ++u) {
-        const int v = v0 + u * kThreads;
-        if (v < nv) dst[v] = x[u];
-      }
-    }
-  }
-  cta_release_peers(
-      a,
-      [&](int j) {
-        return rs_flag(workspace(a, (me - j + D) % D), kRsFullOffset, a.set,
-                       rs_index(a, cta, j, parity));
-      },
-      ep);
-  return true;
-}
-
 // out[v] = ((slot_j0[v] + slot_{j0+step}[v]) + ...) + own[v] over the
 // 16-byte vectors [beg, end), in float32: j0 = 1, step 1 for the low
 // half (x_{c+1} first), j0 = D - 1, step -1 for the high half.
@@ -544,74 +468,44 @@ __device__ void sum_range(const uint4* slot1, long long jstride,
   }
 }
 
-// Reduce the piece at chunk offset `off` (CTA piece count g): wait for
-// every sender's slot, sum in the ring's order, write out, ack.
-template <typename T>
-__device__ bool rs_reduce(const RsArgs& a, u64 g, long long off) {
-  constexpr int kN = Vec<T>::kN;
-  const int D = a.world, me = a.rank, cta = blockIdx.x;
-  const int parity = (int)(g % kRsSlots);
-  const u64 ep = g / kRsSlots + 1;
-  char* wme = workspace(a, me);
-  if (!cta_wait_peers(
-          a,
-          [&](int j) {
-            return rs_flag(wme, kRsFullOffset, a.set,
-                           rs_index(a, cta, j, parity));
-          },
-          ep, kErrFull))
-    return false;
-  const int nv = (int)(min(a.piece, a.n - off) / kN);
-  // vectors of this piece in the low half (n / 2 is a multiple of kN)
-  const int nlow = (int)max(0LL, min((long long)nv, (a.n / 2 - off) / kN));
-  // sender me + j's slot; consecutive j are kRsSlots slots apart
-  const uint4* slot1 = reinterpret_cast<const uint4*>(
-      rs_slot(a, wme, rs_index(a, cta, 1, parity)));
-  const long long jstride = kRsSlots * a.slot_bytes / 16;
-  const uint4* own = reinterpret_cast<const uint4*>(
-      reinterpret_cast<const T*>(a.in) + me * a.n + off);
-  uint4* out = reinterpret_cast<uint4*>(reinterpret_cast<T*>(a.out) + off);
-  sum_range<T>(slot1, jstride, own, out, 0, nlow, D, 1, 1);
-  sum_range<T>(slot1, jstride, own, out, nlow, nv, D, D - 1, -1);
-  // the slots are read: each sender may refill its own
-  cta_release_peers(
-      a,
-      [&](int j) {
-        return rs_flag(workspace(a, (me + j) % D), kRsAckOffset, a.set,
-                       rs_index(a, cta, j, parity));
-      },
-      ep);
-  return true;
-}
-
-// K3b: parts (D, n) of T, destination-major; out (n,) of T gets the
-// float32 sum over ranks of row `rank`, in the ring's order. CTA k takes
-// pieces k, k + G, ...; it pushes piece i + 1 before it reduces piece i.
+// parts (D, n) of T, destination-major; out (n,) of T gets the float32
+// sum over ranks of row `rank`, in the ring's order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
-reduce_scatter_kernel(RsArgs a) {
-  const int cta = blockIdx.x, grid = gridDim.x;
-  char* wme = workspace(a, a.rank);
-  __shared__ u64 s_count;
-  __shared__ int s_bail;
-  if (threadIdx.x == 0) {
-    s_bail = *(volatile int*)a.err != 0;
-    s_count = *(volatile u64*)rs_counter(wme, a.set, cta);
-  }
-  __syncthreads();
-  if (s_bail) return;
-  const u64 g0 = s_count;
-  const long long pieces = (a.n + a.piece - 1) / a.piece;
-  const long long mine = (pieces - cta + grid - 1) / grid;
-  for (long long i = 0; i <= mine; ++i) {
-    if (i < mine && !rs_push<T>(a, g0 + i, (cta + i * grid) * a.piece))
-      return;
-    if (i > 0 &&
-        !rs_reduce<T>(a, g0 + i - 1, (cta + (i - 1) * grid) * a.piece))
-      return;
-  }
-  if (threadIdx.x == 0)
-    *(volatile u64*)rs_counter(wme, a.set, cta) = g0 + mine;
+reduce_scatter_kernel(PushArgs a) {
+  constexpr int kN = Vec<T>::kN;
+  const int D = a.world, me = a.rank, cta = blockIdx.x;
+  const T* parts = reinterpret_cast<const T*>(a.in);
+  run_pieces(
+      a,
+      // each receiver c = me - j's part of the piece into its slot
+      [&](int parity, long long off) {
+        const int nv = (int)(min(a.piece, a.n - off) * sizeof(T) / 16);
+        for (int j = 1; j < D; ++j) {
+          const int c = (me - j + D) % D;
+          copy_vectors<false>(
+              reinterpret_cast<uint4*>(slot_at(
+                  a, workspace(a, c), slot_index(a, cta, j, parity))),
+              reinterpret_cast<const uint4*>(parts + c * a.n + off), nv);
+        }
+      },
+      // every sender's slot and my own part, summed in the ring's order
+      [&](int parity, long long off) {
+        const int nv = (int)(min(a.piece, a.n - off) / kN);
+        // vectors of this piece in the low half (n / 2 is a multiple of kN)
+        const int nlow =
+            (int)max(0LL, min((long long)nv, (a.n / 2 - off) / kN));
+        // sender me + j's slot; consecutive j are kSlots slots apart
+        const uint4* slot1 = reinterpret_cast<const uint4*>(
+            slot_at(a, workspace(a, me), slot_index(a, cta, 1, parity)));
+        const long long jstride = kSlots * a.slot_bytes / 16;
+        const uint4* own =
+            reinterpret_cast<const uint4*>(parts + me * a.n + off);
+        uint4* out =
+            reinterpret_cast<uint4*>(reinterpret_cast<T*>(a.out) + off);
+        sum_range<T>(slot1, jstride, own, out, 0, nlow, D, 1, 1);
+        sum_range<T>(slot1, jstride, own, out, nlow, nv, D, D - 1, -1);
+      });
 }
 
 // Ranks of a ring that share one card at once (in-process ranks), by the
@@ -626,41 +520,74 @@ int ranks_on_card(const void* peers, int world) {
   return world;
 }
 
-// The largest K3b grid on the current device for a ring of `world` ranks,
-// `on_card` of them on this card (the co-residency rule, within the flags
-// and the staging), and its slot size.
-cudaError_t rs_shape(int world, int on_card, int* grid_max,
-                     long long* slot_bytes) {
-  static int capacity[64];  // resident K3b CTAs per card, by device
+// The largest grid of either kernel on the current device for a ring of
+// `world` ranks, `on_card` of them on this card (the co-residency rule,
+// within the flags and the staging), and its slot size.
+cudaError_t push_shape(int world, int on_card, int* grid_max,
+                       long long* slot_bytes) {
+  static int capacity[64];  // resident K3 CTAs per card, by device
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (capacity[dev] == 0) {
-    int sms, occ_f32, occ_bf16;
+    int sms, occ[3];
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ_f32, reduce_scatter_kernel<float>, kThreads, 0);
+          &occ[0], all_gather_kernel, kThreads, 0);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ_bf16, reduce_scatter_kernel<__nv_bfloat16>, kThreads, 0);
+          &occ[1], reduce_scatter_kernel<float>, kThreads, 0);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ[2], reduce_scatter_kernel<__nv_bfloat16>, kThreads, 0);
     if (e != cudaSuccess) return e;
-    capacity[dev] = sms * std::min(occ_f32, occ_bf16);
+    capacity[dev] = sms * std::min({occ[0], occ[1], occ[2]});
   }
   const long long peers = world - 1;
   long long g = capacity[dev] / (kSets * (long long)on_card);
-  g = std::min(g, kRsMaxCtas / peers);
-  g = std::min(g, kRsSetBytes / (peers * kRsSlots * kRsMinSlotBytes));
+  g = std::min(g, kMaxCtas / peers);
+  g = std::min(g, kSetBytes / (peers * kSlots * kMinSlotBytes));
   if (g < 1) return cudaErrorInvalidValue;
   *grid_max = (int)g;
-  *slot_bytes = kRsSetBytes / (g * peers * kRsSlots) / 1024 * 1024;
+  *slot_bytes = kSetBytes / (g * peers * kSlots) / 1024 * 1024;
   return cudaSuccess;
 }
 
 bool valid(int rank, int world, int set, long long n) {
   return world >= 2 && rank >= 0 && rank < world && set >= 0 &&
          set < kSets && n > 0;
+}
+
+// The arguments of one launch: n units in pieces of at least `quantum`
+// units that fit a slot (`unit_bytes` each), spread over the grid; the
+// launch takes no more CTAs than pieces.
+cudaError_t push_args(const void* peers, int rank, int world, int set,
+                      int kind, const void* in, void* out, long long n,
+                      long long unit_bytes, long long quantum, void* err,
+                      long long timeout_ns, PushArgs* a, int* grid) {
+  int grid_max;
+  long long slot_bytes;
+  const cudaError_t e = push_shape(world, ranks_on_card(peers, world),
+                                   &grid_max, &slot_bytes);
+  if (e != cudaSuccess) return e;
+  const long long fit = slot_bytes / unit_bytes / quantum * quantum;
+  const long long even = (n + grid_max - 1) / grid_max;
+  a->peers = reinterpret_cast<const u64*>(peers);
+  a->rank = rank;
+  a->world = world;
+  a->set = set >> 1;
+  a->region = kind * kRegionBytes;
+  a->in = in;
+  a->out = out;
+  a->n = n;
+  a->piece = std::min(fit, (even + quantum - 1) / quantum * quantum);
+  a->slot_bytes = slot_bytes;
+  a->err = reinterpret_cast<int*>(err);
+  a->timeout_ns = timeout_ns;
+  *grid = (int)std::min((long long)grid_max, (n + a->piece - 1) / a->piece);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -682,7 +609,8 @@ int dpx_ring_alloc(int device, void** out) {
 int dpx_ring_free(void* ptr) { return (int)cudaFree(ptr); }
 
 // Register how many ranks of the ring with peer table `peers` run on one
-// card at once (K3b's grid divides the card among them); 0 forgets it.
+// card at once (the kernels' grid divides the card among them); 0 forgets
+// it.
 int dpx_ring_card_ranks(const void* peers, int ranks) {
   std::lock_guard<std::mutex> hold(card_ranks_lock);
   for (auto it = card_ranks.begin(); it != card_ranks.end(); ++it) {
@@ -717,18 +645,14 @@ int dpx_ring_all_gather(const void* peers, int rank, int world, int set,
                         long long timeout_ns, void* stream) {
   if (!valid(rank, world, set, nbytes) || nbytes % 32)
     return (int)cudaErrorInvalidValue;
-  RingArgs a;
-  a.peers = reinterpret_cast<const u64*>(peers);
-  a.rank = rank;
-  a.world = world;
-  a.set = set >> 1;
-  a.in = x;
-  a.out = out;
-  a.n = nbytes;
-  a.err = reinterpret_cast<int*>(err);
-  a.timeout_ns = timeout_ns;
-  ring_all_gather_kernel<<<kDirs * kCtas, kThreads, 0,
-                           reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  PushArgs a;
+  int grid;
+  const cudaError_t e = push_args(peers, rank, world, set, 0, x, out,
+                                  nbytes / 16, 16, kAgQuantum, err,
+                                  timeout_ns, &a, &grid);
+  if (e != cudaSuccess) return (int)e;
+  all_gather_kernel<<<grid, kThreads, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -742,28 +666,12 @@ int dpx_ring_reduce_scatter(const void* peers, int rank, int world, int set,
   if (!valid(rank, world, set, n) || n % kQuantum ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  int grid_max;
-  long long slot_bytes;
-  const cudaError_t e = rs_shape(world, ranks_on_card(peers, world),
-                                 &grid_max, &slot_bytes);
+  PushArgs a;
+  int grid;
+  const cudaError_t e =
+      push_args(peers, rank, world, set, 1, parts, out, n,
+                dtype == 0 ? 4 : 2, kQuantum, err, timeout_ns, &a, &grid);
   if (e != cudaSuccess) return (int)e;
-  const long long esize = dtype == 0 ? 4 : 2;
-  const long long fit = slot_bytes / esize / kQuantum * kQuantum;
-  const long long even = (n + grid_max - 1) / grid_max;
-  RsArgs a;
-  a.peers = reinterpret_cast<const u64*>(peers);
-  a.rank = rank;
-  a.world = world;
-  a.set = set >> 1;
-  a.in = parts;
-  a.out = out;
-  a.n = n;
-  a.piece = std::min(fit, (even + kQuantum - 1) / kQuantum * kQuantum);
-  a.slot_bytes = slot_bytes;
-  a.err = reinterpret_cast<int*>(err);
-  a.timeout_ns = timeout_ns;
-  const int grid =
-      (int)std::min((long long)grid_max, (n + a.piece - 1) / a.piece);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     reduce_scatter_kernel<float><<<grid, kThreads, 0, s>>>(a);

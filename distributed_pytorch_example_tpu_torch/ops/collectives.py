@@ -1,17 +1,21 @@
-"""Ring all-gather (K3a) and one-shot reduce-scatter (K3b) over peer
-memory: the CUDA kernels, their plain versions and the peer workspace.
+"""All-gather (K3a) and reduce-scatter (K3b) over peer memory: the CUDA
+kernels, their plain versions and the peer workspace.
 
-- :func:`ring_all_gather` launches ``csrc/ring_collectives.cu``'s K3a, the
-  Hopper port of the TPU kernel ``ring_all_gather`` / ``_ag_kernel``
+Both kernels (``csrc/ring_collectives.cu``) are one-shot pushes across the
+H100's all-to-all NVLink: every rank stores what each peer needs straight
+into that peer's workspace (one hop, no ring), and the peer finishes the
+collective locally.
+
+- :func:`ring_all_gather` launches K3a, the Hopper port of the TPU kernel
+  ``ring_all_gather`` / ``_ag_kernel``
   (distributed_pytorch_example_tpu/ops/pallas/collectives.py): the tiled
-  axis-0 all-gather, as a bidirectional ring (low half clockwise, high
-  half counter-clockwise), double-buffered by hop parity, with a
-  neighbour barrier first. It moves bytes, so it takes any dtype.
+  axis-0 all-gather. Every rank pushes its payload to every peer, and each
+  peer copies it into that rank's row. It moves bytes, so it takes any
+  dtype.
 - :func:`ring_reduce_scatter` launches K3b, the port of
   ``ring_reduce_scatter`` / ``_rs_kernel``: the tiled reduce-scatter. Every
-  rank pushes each destination's part straight into that rank's workspace
-  (one hop across the H100's all-to-all NVLink), and the destination adds
-  the parts in float32 in the TPU ring's order, bit for bit
+  rank pushes each destination's part to that rank, and the destination
+  adds the parts in float32 in the TPU ring's order, bit for bit
   (:func:`ring_reduce_scatter_ring_order`), cast back to the input dtype.
 - Each launch adds one to ``ring_all_gather.launches`` /
   ``ring_reduce_scatter.launches``.
@@ -24,12 +28,14 @@ memory: the CUDA kernels, their plain versions and the peer workspace.
 The kernels take what the TPU kernels take: a local payload that splits
 into two halves of 128-element rows (:func:`half_rows`), on a ring of at
 least two ranks; callers (``parallel/wire.py``) send anything else to the
-library collective, as the JAX package sends it to XLA's.
+library collective, as the JAX package sends it to XLA's. The pushes need
+no halves, but the rule decides which calls reach the library, so it
+stays the TPU kernels'.
 
 **The peer workspace** (:class:`PeerRing`; the TPU reaches its neighbours
 over ICI and needs none). Each rank allocates one fixed device buffer,
-once, for the staging slots and the flags (``cudaMalloc``, so that it can
-be exported). Ranks in separate processes swap CUDA IPC handles with
+once, for the staging slots and the flags (264 MiB: 32 MiB of slots per
+collective id; ``cudaMalloc``, so that it can be exported). Ranks in separate processes swap CUDA IPC handles with
 ``dist.all_gather_object`` and open each other's buffers; ranks that share
 one process (the card checks: the CUDA counterpart of the JAX tests' fake
 multi-device mesh) fill the table with the raw pointers of their local
@@ -59,8 +65,7 @@ _LANES = 128  # the TPU kernels' row width: halves are (rows, 128)
 MAX_STREAMS = 4  # stream ids per collective kind with their own buffers
 DEFAULT_TIMEOUT_S = 10.0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ERRORS = {1: "the neighbour barrier", 2: "a slot's acknowledgement",
-           3: "a slot's data"}
+_ERRORS = {2: "a slot's acknowledgement", 3: "a slot's data"}
 
 
 def half_rows(n: int) -> Optional[int]:
@@ -125,7 +130,7 @@ class PeerRing:
     error word; ``timeout_s`` bounds every wait of its kernels.
     ``card_ranks`` is how many of the ring's ranks run on this card at once
     (all of them for in-process ranks, one for a ring over processes): the
-    reduce-scatter kernel's grid divides the card among them.
+    kernels' grid divides the card among them.
     """
 
     def __init__(self, rank: int, world: int, device: torch.device,

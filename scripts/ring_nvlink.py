@@ -15,17 +15,21 @@ by default):
    against the plain sum in the TPU ring's order (float32 at both sizes,
    bf16 at the bucket; every rank regenerates every rank's input from its
    seed), then timed cold (L2 flushed, ranks aligned by a barrier before
-   each launch) beside NCCL and the NVLink bound: each rank takes in
-   (D-1) parts of the payload, at 450 GB/s each way. One JSON line,
-   ``ring_nvlink {...}``;
+   each launch) beside NCCL and the NVLink bound: each rank sends out
+   and takes in (D-1) parts of the payload, at 450 GB/s each way. At the
+   GPT-2 size the gather is also checked and timed in bf16, the dtype of
+   run (ii)'s parameter gather. One JSON line, ``ring_nvlink {...}``;
 2. path: chip_smoke.py's ZeRO-1 phase at world = the card count, one
    process per card over nccl, held against the one-process replicated
    run (chip_smoke.py's train phase) on card 0;
-3. profile: the same ZeRO-1 run (i) step (GPT-2 124M bf16, 16 / world
-   rows per rank, 4 MiB buckets, Adam): 3 warm-up steps, 5 timed with
-   CUDA events, 3 under ``torch.profiler``; one JSON line,
-   ``ring_nvlink_profile {...}``, with each rank's step time, device
-   busy and idle share, and the device time of K3b, K3a and NCCL.
+3. profile: the ZeRO-1 steps of chip_smoke.py's runs (i) (bucketed
+   float32 sync: K3b) and (ii) (int8-block wire and bf16 parameter
+   gather: K3a), GPT-2 124M bf16, 16 / world rows per rank, 4 MiB
+   buckets, Adam: 3 warm-up steps, 5 timed with CUDA events, 3 under
+   ``torch.profiler``, per run; one JSON line, ``ring_nvlink_profile
+   {...}``, with each rank's step time, device busy and idle share, and
+   the device time, share of the profiled wall time and launches per
+   step of K3a, K3b and NCCL.
 
 ``--root DIR`` imports the port and chip_smoke.py from another tree (a
 ``git archive`` of another commit) and builds its kernels there, so that
@@ -108,6 +112,14 @@ def ring_order_equal(torch, collectives, dev, rank, world, n, dtype):
     return bool(torch.equal(tile, want))
 
 
+def gather_case(torch, dist, collectives, x):
+    """(x, K3a's gather of x, NCCL's gather of x) on this rank."""
+    want = torch.empty(dist.get_world_size() * x.numel(), dtype=x.dtype,
+                       device=x.device)
+    dist.all_gather_into_tensor(want, x)
+    return x, collectives.ring_all_gather(x), want
+
+
 def kernels_worker() -> int:
     import torch
     import torch.distributed as dist
@@ -126,9 +138,10 @@ def kernels_worker() -> int:
            "device": torch.cuda.get_device_name(dev)}
     for label, n in cases:
         x, buf = inputs(torch, dev, rank, n, world)
-        got = collectives.ring_all_gather(x)
-        want = torch.empty(n, device=dev)
-        dist.all_gather_into_tensor(want, x)
+        gathers = {"float32": gather_case(torch, dist, collectives, x)}
+        if label == "gpt2":
+            gathers["bfloat16"] = gather_case(torch, dist, collectives,
+                                              x.to(torch.bfloat16))
         tile = collectives.ring_reduce_scatter(buf)
         ref = torch.empty(n // world, device=dev)
         dist.reduce_scatter_tensor(ref, buf)
@@ -147,36 +160,43 @@ def kernels_worker() -> int:
         ring.check()
         torch.cuda.empty_cache()
         iters = 5 if label == "gpt2" else 30
-        ms = {
-            "k3a": timed(torch, dist, lambda: collectives.ring_all_gather(x),
-                         flush, iters),
-            "nccl_ag": timed(torch, dist,
-                             lambda: dist.all_gather_into_tensor(want, x),
-                             flush, iters),
-            "k3b": timed(torch, dist,
-                         lambda: collectives.ring_reduce_scatter(buf),
-                         flush, iters),
-            "nccl_rs": timed(torch, dist,
-                             lambda: dist.reduce_scatter_tensor(ref, buf),
-                             flush, iters),
-        }
+        ms = {}
+        for name, (xg, _, wantg) in gathers.items():
+            suffix = "" if name == "float32" else "_bf16"
+            ms["k3a" + suffix] = timed(
+                torch, dist, lambda: collectives.ring_all_gather(xg), flush,
+                iters)
+            ms["nccl_ag" + suffix] = timed(
+                torch, dist, lambda: dist.all_gather_into_tensor(wantg, xg),
+                flush, iters)
+        ms["k3b"] = timed(torch, dist,
+                          lambda: collectives.ring_reduce_scatter(buf),
+                          flush, iters)
+        ms["nccl_rs"] = timed(torch, dist,
+                              lambda: dist.reduce_scatter_tensor(ref, buf),
+                              flush, iters)
         ring.check()
-        part = n // world * 4  # bytes of one rank's part
+        part = n // world * 4  # bytes of one rank's float32 part
         out[label] = {
-            "elements": n, "k3a_equal": bool(torch.equal(got, want)),
+            "elements": n,
+            "k3a_equal": {name: bool(torch.equal(g, w))
+                          for name, (_, g, w) in gathers.items()},
             "k3b_max_abs_err": err.max().item(),
             "k3b_within_bound": bool((err <= tol).all()),
             "k3b_ring_order_equal": exact,
             "ms": ms, "bound_ms": (world - 1) * part / NVLINK * 1e3,
         }
-        del x, buf, got, want, tile, ref, absum, tol, err
+        if "bfloat16" in gathers:  # the gather moves half the bytes
+            out[label]["bound_bf16_ms"] = out[label]["bound_ms"] / 2
+        del x, buf, gathers, tile, ref, absum, tol, err
         torch.cuda.empty_cache()
     gathered = [None] * world
     dist.all_gather_object(gathered, out)
     if rank == 0:
         print("ring_nvlink " + json.dumps(gathered), flush=True)
     distributed.shutdown()
-    ok = all(r[label]["k3a_equal"] and r[label]["k3b_within_bound"]
+    ok = all(all(r[label]["k3a_equal"].values())
+             and r[label]["k3b_within_bound"]
              and all(v is not False
                      for v in r[label]["k3b_ring_order_equal"].values())
              for r in gathered for label, _ in cases)
@@ -200,14 +220,38 @@ def device_ms(prof, *keys):
 def profile_worker() -> int:
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from distributed_pytorch_example_tpu_torch.runtime import distributed
+
+    distributed.initialize(device="cuda")
+    rank, world = distributed.process_index(), distributed.process_count()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "world": world}
+    for run in chip_smoke.ZERO1_RUNS:
+        out[run] = profile_run(torch, dist, chip_smoke, run, world)
+        torch.cuda.empty_cache()
+    gathered = [None] * world
+    dist.all_gather_object(gathered, out)
+    if rank == 0:
+        print("ring_nvlink_profile " + json.dumps(gathered), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def profile_run(torch, dist, chip_smoke, run, world):
+    """One rank's numbers for ZeRO-1 run ``run`` of chip_smoke.py."""
+    from torch.profiler import ProfilerActivity, profile
+
     from distributed_pytorch_example_tpu_torch.data import (
         DeviceLoader,
         SyntheticTokenDataset,
     )
     from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_reduce_scatter,
+    )
     from distributed_pytorch_example_tpu_torch.parallel import (
         WireConfig,
         data_parallel,
@@ -215,7 +259,6 @@ def profile_worker() -> int:
     from distributed_pytorch_example_tpu_torch.parallel.wire import (
         DEFAULT_BUCKET_BYTES,
     )
-    from distributed_pytorch_example_tpu_torch.runtime import distributed
     from distributed_pytorch_example_tpu_torch.train import (
         CausalLMTask,
         TrainState,
@@ -223,14 +266,13 @@ def profile_worker() -> int:
         make_optimizer,
     )
 
-    distributed.initialize(device="cuda")
-    rank, world = distributed.process_index(), distributed.process_count()
-    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = chip_smoke.ZERO1_RUNS[run]
     model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
                  seed=0)
-    part = data_parallel(world, dp_shard_opt_state=True, wire=WireConfig(
-        compress="none", param_gather="float32",
-        bucket_bytes=DEFAULT_BUCKET_BYTES))
+    part = data_parallel(world, dp_shard_opt_state=cfg["zero1"],
+                         wire=WireConfig(compress=cfg["wire"],
+                                         param_gather=cfg["param_gather"],
+                                         bucket_bytes=DEFAULT_BUCKET_BYTES))
     state = TrainState(step=0, model=model, optimizer=make_optimizer(
         model.parameters(), "adam", 1e-3))
     step = build_train_step(CausalLMTask(), partitioner=part)
@@ -253,6 +295,7 @@ def profile_worker() -> int:
     torch.cuda.synchronize()
     step_ms = sorted(s.elapsed_time(e) for s, e in events)
     dist.barrier()
+    launches = (ring_all_gather.launches, ring_reduce_scatter.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -261,23 +304,23 @@ def profile_worker() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = device_ms(prof)
-    out = {
-        "rank": rank, "world": world, "rows": batches[0]["tokens"].shape[0],
+    kernels = {"k3a": device_ms(prof, "all_gather_kernel"),
+               "k3b": device_ms(prof, "reduce_scatter_kernel"),
+               "nccl": device_ms(prof, "nccl")}
+    return {
+        "rows": batches[0]["tokens"].shape[0],
         "step_ms_unprofiled": step_ms, "median_step_ms":
             step_ms[len(step_ms) // 2],
         "profiled_steps": PROFILED, "wall_ms": wall_ms,
         "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / wall_ms,
-        "k3b_ms": device_ms(prof, "reduce_scatter_kernel"),
-        "k3a_ms": device_ms(prof, "all_gather_kernel"),
-        "nccl_ms": device_ms(prof, "nccl"),
+        **{f"{k}_ms": v for k, v in kernels.items()},
+        **{f"{k}_share": v / wall_ms for k, v in kernels.items()},
+        "k3a_launches_per_step":
+            (ring_all_gather.launches - launches[0]) / PROFILED,
+        "k3b_launches_per_step":
+            (ring_reduce_scatter.launches - launches[1]) / PROFILED,
     }
-    gathered = [None] * world
-    dist.all_gather_object(gathered, out)
-    if rank == 0:
-        print("ring_nvlink_profile " + json.dumps(gathered), flush=True)
-    distributed.shutdown()
-    return 0
 
 
 def spawn(world: int, worker: str, prefix: str) -> bool:

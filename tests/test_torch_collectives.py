@@ -14,13 +14,14 @@ normal inputs (a few ulps of sums below 8). bfloat16 outputs round those
 float32 sums to bf16, which may then lie one bf16 ulp apart (2^-7 of the
 largest |sum|).
 
-The plain sum in the ring's order (``ring_reduce_scatter_ring_order``),
-which K3b must equal bit for bit on the card, is held bit for bit against
-the TPU kernel itself: ``_rs_kernel`` run in Pallas's TPU interpret mode
-on the fake CPU mesh (remote copies and semaphores emulated), with its
-off-TPU fallback switched off for the test. It is also within
-chip_smoke.py's ``ring_rs_bound`` of the plain version, and equal to it at
-D = 2, where two terms commute exactly.
+The plain gather, which K3a must equal byte for byte on the card, and the
+plain sum in the ring's order (``ring_reduce_scatter_ring_order``), which
+K3b must equal bit for bit, are held bit for bit against the TPU kernels
+themselves: ``_ag_kernel`` and ``_rs_kernel`` run in Pallas's TPU
+interpret mode on the fake CPU mesh (remote copies and semaphores
+emulated), with their off-TPU fallback switched off for the test. The
+ring-order sum is also within chip_smoke.py's ``ring_rs_bound`` of the
+plain version, and equal to it at D = 2, where two terms commute exactly.
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -103,16 +104,47 @@ def test_reduce_scatter_reference_matches_jax_ring(world, dtype):
 def tpu_ring_interpreted(monkeypatch):
     """The JAX ring entry points take the Pallas kernels, run by the TPU
     interpreter, instead of their off-TPU XLA fallback. jax 0.9 names the
-    kernels' compiler parameters ``CompilerParams``."""
+    kernels' compiler parameters ``CompilerParams``. Returns the kernel
+    bodies that ``pallas_call`` was given."""
     pallas_call = jring.pl.pallas_call
+    bodies = []
 
-    def interpreted(*args, **kwargs):
-        return pallas_call(*args, interpret=pltpu.InterpretParams(), **kwargs)
+    def interpreted(body, *args, **kwargs):
+        bodies.append(getattr(body, "func", body))
+        return pallas_call(body, *args, interpret=pltpu.InterpretParams(),
+                           **kwargs)
 
     monkeypatch.setattr(jring, "ring_supported", lambda: True)
     monkeypatch.setattr(jring.pl, "pallas_call", interpreted)
     monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
                         raising=False)
+    return bodies
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_all_gather_reference_is_the_tpu_kernels_byte_for_byte(
+        tpu_ring_interpreted, world, dtype):
+    rng = np.random.default_rng(30 + world)
+    x = rng.standard_normal((world, 4, 128)).astype(np.float32)
+    if dtype == "int8":
+        x = rng.integers(-128, 128, (world, 4, 128)).astype(np.int8)
+    mesh = _mesh(world)
+    with mesh:
+        jx = jax.numpy.asarray(x, dtype=dtype)
+        want = _smap(mesh, lambda v: jring.ring_all_gather(v, "data"),
+                     P())(jx)
+    assert tpu_ring_interpreted == [jring._ag_kernel]
+    # compare bytes: bf16 through its 16-bit pattern
+    bits, tbits = ((np.int16, torch.int16) if dtype == "bfloat16"
+                   else (x.dtype, getattr(torch, dtype)))
+    want = np.asarray(want).view(bits)  # (world, 4, 128)
+    tdt = getattr(torch, dtype)
+    xs = [torch.from_numpy(np.array(jx[r:r + 1]).view(bits)).view(tdt)
+          for r in range(world)]
+    for out in collectives.ring_all_gather_reference(xs):
+        assert out.dtype == tdt and out.shape == (world, 4, 128)
+        np.testing.assert_array_equal(out.view(tbits).numpy(), want)
 
 
 @pytest.mark.parametrize("world", [2, 4, 8])

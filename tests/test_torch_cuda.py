@@ -330,11 +330,12 @@ def close_group(rings):
         ring.close()
 
 
-# (world, elements per rank): one piece per direction, a payload of
-# several 1 MiB staging pieces per direction (the kernels' chunking), and
-# one 4 MiB float32 gradient bucket (the main path's) at every world
+# (world, elements per rank): one piece, payloads of many pieces, one 4
+# MiB float32 gradient bucket (the main path's) at every world, and 256 x
+# 37 x 8, which no piece size of either kernel divides (the last piece
+# is short)
 RING_CASES = [(2, 512), (4, 2048), (8, 256 * 8), (2, 3 << 20), (4, 3 << 18),
-              (2, 1 << 20), (4, 1 << 20), (8, 1 << 20)]
+              (2, 1 << 20), (4, 1 << 20), (8, 1 << 20), (8, 256 * 37 * 8)]
 
 
 @pytest.mark.parametrize("world,n", RING_CASES,
@@ -388,8 +389,8 @@ def test_ring_kernels_match_plain_versions(card, world, n, dtype):
 def test_ring_kernels_stay_right_over_calls_of_changing_size(card):
     """Twelve gathers and twelve reduce-scatters in flight back to back on
     every rank, cycling through sizes whose pieces split unevenly (a
-    staging slot is reused with other offsets each call), each result
-    held against its plain version."""
+    staging slot is reused with other offsets each call) and through the
+    four stream ids, each result held against its plain version."""
     from distributed_pytorch_example_tpu_torch.ops.collectives import (
         ring_all_gather,
         ring_all_gather_reference,
@@ -405,10 +406,12 @@ def test_ring_kernels_stay_right_over_calls_of_changing_size(card):
         for i in range(12):
             xs = chip_smoke.ring_inputs(torch, world, sizes[i % 3],
                                         torch.float32, seed=i)
-            ag = chip_smoke.ring_run(torch, ring_all_gather, rings, xs,
-                                     streams)
-            rs = chip_smoke.ring_run(torch, ring_reduce_scatter, rings, xs,
-                                     streams)
+            ag = chip_smoke.ring_run(
+                torch, lambda x, ring, sid=i % 4: ring_all_gather(
+                    x, ring, stream=sid), rings, xs, streams)
+            rs = chip_smoke.ring_run(
+                torch, lambda x, ring, sid=(i + 1) % 4: ring_reduce_scatter(
+                    x, ring, stream=sid), rings, xs, streams)
             calls.append((xs, ag, rs))
         torch.cuda.synchronize()
         for ring in rings:
@@ -491,6 +494,129 @@ def test_ring_stream_ids_in_flight_at_once_do_not_cross(card):
         close_group(rings)
 
 
+def test_all_eight_collective_ids_in_flight_at_once_do_not_cross(card):
+    """Four gathers and four reduce-scatters, every collective id, in
+    flight at once on two ranks, each on its own CUDA stream and issued in
+    opposite orders on the two ranks. Each launch takes 64 CTAs, near its
+    co-residency share of 66 (132 SMs x 8 / (8 ids x 2 ranks)), so the 16
+    launches hold 1,024 of the card's 1,056 CTA places and must all be
+    resident at once; every result is its own collective's."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        MAX_STREAMS,
+        ring_all_gather,
+        ring_all_gather_reference,
+        ring_reduce_scatter,
+        ring_reduce_scatter_reference,
+    )
+
+    world, n = 2, 1 << 20
+    rings, _ = ring_group(world)
+    try:
+        ops = [(fn, ref, sid) for fn, ref in (
+            (ring_all_gather, ring_all_gather_reference),
+            (ring_reduce_scatter, ring_reduce_scatter_reference))
+            for sid in range(MAX_STREAMS)]
+        inputs = [chip_smoke.ring_inputs(torch, world, n, torch.float32,
+                                         seed=20 + i) for i in range(len(ops))]
+        streams = [[torch.cuda.Stream() for _ in ops] for _ in range(world)]
+        main = torch.cuda.current_stream()
+        got = [[None] * world for _ in ops]
+        for rank in range(world):
+            order = range(len(ops)) if rank == 0 else reversed(range(len(ops)))
+            for i in order:
+                fn, _, sid = ops[i]
+                stream = streams[rank][i]
+                stream.wait_stream(main)
+                with torch.cuda.stream(stream):
+                    got[i][rank] = fn(inputs[i][rank], rings[rank],
+                                      stream=sid)
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        for i, (_, ref, _) in enumerate(ops):
+            for rank, want in enumerate(ref(inputs[i])):
+                # a two-term float32 sum is the same in either order
+                assert torch.equal(got[i][rank], want), (i, rank)
+    finally:
+        close_group(rings)
+
+
+@pytest.mark.parametrize("chunk", [256 * 4099, 256 * 65537],
+                         ids=["one-round", "rounds"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["fp32", "bf16", "int8"])
+def test_all_gather_takes_a_payload_no_piece_divides(card, chunk, dtype):
+    """256 x a prime elements per rank: no piece size (a multiple of 4
+    KiB) divides the payload, so the last piece is short; the larger one
+    exceeds the staging slots, so every CTA takes several pieces."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_all_gather_reference,
+    )
+
+    world = 2
+    rings, streams = ring_group(world)
+    try:
+        xs = chip_smoke.ring_inputs(torch, world, chunk, dtype,
+                                    seed=chunk % 89)
+        before = ring_all_gather.launches
+        got = chip_smoke.ring_run(torch, ring_all_gather, rings, xs, streams)
+        torch.cuda.synchronize()
+        for ring in rings:
+            ring.check()
+        assert ring_all_gather.launches == before + world
+        for g, w in zip(got, ring_all_gather_reference(xs)):
+            assert g.dtype == dtype and torch.equal(g, w)
+    finally:
+        close_group(rings)
+
+
+def absent_rank_raises(fn):
+    """Three of four ranks launch ``fn`` with a 0.2 s wait bound: each of
+    them raises at its ring's check() within a second, and the absent rank
+    has no error. Returns the inputs and a fresh group of four rings, on
+    which the caller makes a good call."""
+    import time
+
+    world = 4
+    rings, streams = ring_group(world, timeout_s=0.2)
+    try:
+        xs = chip_smoke.ring_inputs(torch, world, 1 << 20, torch.float32,
+                                    seed=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chip_smoke.ring_run(torch, fn, rings[:-1], xs[:-1], streams[:-1])
+        for ring in rings[:-1]:
+            with pytest.raises(RuntimeError, match="timed out"):
+                ring.check()
+        assert time.perf_counter() - t0 <= 1.0
+        rings[-1].check()  # the absent rank never waited
+        return xs, ring_group(world)
+    finally:
+        close_group(rings)
+
+
+def test_all_gather_raises_when_a_rank_never_arrives(card):
+    """A gather with one rank absent raises on the other three within a
+    second; the card then serves a good gather on a fresh ring."""
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_all_gather_reference,
+    )
+
+    xs, fresh = absent_rank_raises(ring_all_gather)
+    try:
+        got = chip_smoke.ring_run(torch, ring_all_gather, fresh[0], xs,
+                                  fresh[1])
+        torch.cuda.synchronize()
+        for ring in fresh[0]:
+            ring.check()
+        for g, w in zip(got, ring_all_gather_reference(xs)):
+            assert torch.equal(g, w)
+    finally:
+        close_group(fresh[0])
+
+
 # -- K3b: the one-shot reduce-scatter, bit for bit in the ring's order --------
 
 # 256 x a prime: a chunk that no piece size (a multiple of 256 elements)
@@ -570,30 +696,12 @@ def test_reduce_scatter_raises_when_a_rank_never_arrives(card):
     """Three of four ranks launch, with a 0.2 s wait bound: each of them
     raises at its ring's check() within a second, the absent rank has no
     error, and the card then serves a good call on a fresh ring."""
-    import time
-
     from distributed_pytorch_example_tpu_torch.ops.collectives import (
         ring_reduce_scatter,
     )
 
-    world = 4
-    rings, streams = ring_group(world, timeout_s=0.2)
-    fresh = None
+    xs, fresh = absent_rank_raises(ring_reduce_scatter)
     try:
-        xs = chip_smoke.ring_inputs(torch, world, 1 << 20, torch.float32,
-                                    seed=5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chip_smoke.ring_run(torch, ring_reduce_scatter, rings[:-1], xs[:-1],
-                            streams[:-1])
-        for ring in rings[:-1]:
-            with pytest.raises(RuntimeError, match="timed out"):
-                ring.check()
-        assert time.perf_counter() - t0 <= 1.0
-        rings[-1].check()  # the absent rank never waited
-        fresh = ring_group(world)
-        assert rs_exact(*fresh, xs) == world
+        assert rs_exact(*fresh, xs) == len(xs)
     finally:
-        close_group(rings)
-        if fresh is not None:
-            close_group(fresh[0])
+        close_group(fresh[0])

@@ -51,6 +51,7 @@ def test_port_and_chip_smoke_import_no_jax():
               ROOT / "scripts" / "probe_peer_ipc.py",
               ROOT / "scripts" / "ring_nvlink.py",
               ROOT / "scripts" / "bench_flash.py",
+              ROOT / "scripts" / "k3_device_time.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
     for path in files:
