@@ -15,7 +15,9 @@ last line:
 3. kernel — hold each kernel against its plain PyTorch version on the
    card at the main paths' shapes, then time kernel, plain version and one
    library call, beside the least time the card could take (the bound):
-   the paged-decode kernel (K2), the flash-attention forward and backward
+   the paged-decode kernel (K2; also against its split arithmetic, and
+   timed at three row mixes: the kernel cases' lengths, every slot at the
+   full table, one row alone), the flash-attention forward and backward
    (K1), then the all-gather and reduce-scatter pushes (K3a, K3b) with 2,
    4 and 8 in-process ranks, each on its own CUDA stream, at one 4 MiB
    gradient bucket and at the whole GPT-2 124M gradient (K3b also bit for
@@ -78,6 +80,10 @@ BLOCK_SIZE, MAX_BLOCKS, NUM_BLOCKS = 16, 64, 513
 # row lengths straddling block edges: first/last position of a block,
 # one-block rows, a full table
 KERNEL_LENS = (0, 15, 16, 17, 255, 256, 511, 1023)
+# K2's timing cases: the kernel cases' lens, every slot at the full table,
+# one row alone at the full table
+PAGED_TIMING = {"mixed": KERNEL_LENS, "long": (1023,) * SLOTS,
+                "single": (1023,)}
 
 
 def say(phase: str, msg: str) -> None:
@@ -180,15 +186,20 @@ def kernel_case(torch, *, batch, heads, kv_heads, head_dim, block_size,
             table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-def time_cold(torch, fn, iters=50):
+def time_cold(torch, fn, iters=50, clean=False):
     """Mean ms of ``fn`` with the 50 MB L2 flushed before every launch (the
-    serving path reads each layer's pool cold); events bracket only fn."""
+    serving path reads each layer's pool cold); events bracket only fn.
+    The flush writes 256 MB, which leaves the L2 full of dirty lines that
+    ``fn``'s loads must write back; with ``clean`` it reads them instead."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -201,7 +212,9 @@ def time_cold(torch, fn, iters=50):
 
 def check_kernels(torch, bandwidth):
     from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        decode_splits,
         paged_attention_reference,
+        paged_decode_split_reference,
         paged_flash_decode,
     )
 
@@ -246,42 +259,31 @@ def check_kernels(torch, bandwidth):
         errors[name] = err
         say("kernel", f"{name}: max abs err {err:.3e} (tol {tol:.0e}: {why})")
 
-    # timing at the main path's shape and dtype (fp32 MHA)
+    # the split arithmetic at the serving shape, with the kernel's own
+    # split count: same ranges and merge order, float32 throughout
     q, pk, pv, table, lens = kernel_case(
         torch, seed=0, heads=HEADS, kv_heads=HEADS, head_dim=HEAD_DIM,
         dtype=torch.float32, **geometry,
     )
-    q4, pos2 = q[:, None], lens[:, None]
-    idx = table.long()
-    gk = pk[idx].reshape(SLOTS, -1, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
-    gv = pv[idx].reshape(SLOTS, -1, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
-    key_pos = torch.arange(MAX_BLOCKS * BLOCK_SIZE, device="cuda")
-    mask = (key_pos[None, :] <= lens[:, None])[:, None, None, :]
-    qh = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = {}
-    # plain, kernel, kernel, plain: keep the comparison inside one call
-    for label, fn in (
-        ("plain", lambda: paged_attention_reference(q4, pk, pv, table, pos2)),
-        ("kernel", lambda: paged_flash_decode(q, pk, pv, table, lens)),
-        ("kernel2", lambda: paged_flash_decode(q, pk, pv, table, lens)),
-        ("plain2", lambda: paged_attention_reference(q4, pk, pv, table, pos2)),
-        ("library", lambda: sdpa(qh, gk, gv, attn_mask=mask)),
-    ):
-        ms[label] = time_cold(torch, fn)
-    live_keys = sum(min(p, MAX_BLOCKS * BLOCK_SIZE - 1) + 1 for p in KERNEL_LENS)
-    kv_bytes = 2 * live_keys * HEADS * HEAD_DIM * 4
-    io_bytes = 2 * SLOTS * HEADS * HEAD_DIM * 4 + table.numel() * 4 + SLOTS * 4
-    flops = 4 * live_keys * HEADS * HEAD_DIM
-    bytes_ms = (kv_bytes + io_bytes) / bandwidth * 1e3
-    ops_ms = flops / _F32_PEAK * 1e3
-    say("kernel", f"paged_flash_decode fp32 B={SLOTS} N={HEADS} H={HEAD_DIM} "
-                  f"bs={BLOCK_SIZE} mb={MAX_BLOCKS} lens={list(KERNEL_LENS)}: "
-                  f"kernel {ms['kernel']:.4f}/{ms['kernel2']:.4f} ms, plain "
-                  f"{ms['plain']:.4f}/{ms['plain2']:.4f} ms, library (SDPA on "
-                  f"pre-gathered KV) {ms['library']:.4f} ms, bound "
-                  f"{max(bytes_ms, ops_ms):.4f} ms "
-                  f"({kv_bytes + io_bytes} bytes, {flops} flops)")
+    splits = decode_splits(SLOTS, HEADS, MAX_BLOCKS, BLOCK_SIZE,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    got = paged_flash_decode(q, pk, pv, table, lens)
+    ref = paged_decode_split_reference(q, pk, pv, table, lens, splits)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(math.isfinite(err) and err <= 2e-5,
+          f"kernel vs split reference ({splits} splits): max abs err "
+          f"{err:.3e} > tol 2e-05")
+    say("kernel", f"fp32-mha vs paged_decode_split_reference ({splits} "
+                  f"splits): max abs err {err:.3e} (tol 2e-05: float32 "
+                  "throughout; only the summation order differs)")
+
+    # timing at the main path's shape and dtype (fp32 MHA), then one row
+    # per slot at the full table ("long") and one row alone ("single")
+    timed = {label: time_paged(torch, bandwidth, label, lens)
+             for label, lens in PAGED_TIMING.items()}
+    ms = timed["mixed"]
     return {
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -292,10 +294,71 @@ def check_kernels(torch, bandwidth):
         "max_abs_err": errors["fp32-mha"],
         "ms": min(ms["kernel"], ms["kernel2"]),
         "plain_ms": min(ms["plain"], ms["plain2"]),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": ms["bound_ms"],
+        "bound_by": ms["bound_by"],
         "library_ms": ms["library"],
     }
+
+
+def paged_bound(lens, bandwidth):
+    """(bound ms, by, bytes, flops) of K2 at the serving geometry in fp32:
+    each live K/V row read once, q, out, table and lens once."""
+    batch = len(lens)
+    live_keys = sum(min(p, MAX_BLOCKS * BLOCK_SIZE - 1) + 1 for p in lens)
+    kv_bytes = 2 * live_keys * HEADS * HEAD_DIM * 4
+    io_bytes = (2 * batch * HEADS * HEAD_DIM * 4 + batch * MAX_BLOCKS * 4
+                + batch * 4)
+    flops = 4 * live_keys * HEADS * HEAD_DIM
+    bytes_ms = (kv_bytes + io_bytes) / bandwidth * 1e3
+    ops_ms = flops / _F32_PEAK * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", kv_bytes + io_bytes, flops)
+
+
+def time_paged(torch, bandwidth, label, lens):
+    """K2, its plain version and SDPA on pre-gathered KV at the serving
+    geometry (fp32, 12 heads, head_dim 64, blocks of 16, 64 per row, pool
+    513), one row per entry of ``lens``, timed plain, kernel, kernel, plain
+    with the L2 flushed; prints one line and returns the times and bound."""
+    from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        paged_attention_reference,
+        paged_flash_decode,
+    )
+
+    batch = len(lens)
+    q, pk, pv, table, lens_t = kernel_case(
+        torch, seed=0, batch=batch, heads=HEADS, kv_heads=HEADS,
+        head_dim=HEAD_DIM, block_size=BLOCK_SIZE, max_blocks=MAX_BLOCKS,
+        num_blocks=NUM_BLOCKS, lens=lens, dtype=torch.float32,
+    )
+    q4, pos2 = q[:, None], lens_t[:, None]
+    idx = table.long()
+    gk = pk[idx].reshape(batch, -1, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    gv = pv[idx].reshape(batch, -1, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    key_pos = torch.arange(MAX_BLOCKS * BLOCK_SIZE, device="cuda")
+    mask = (key_pos[None, :] <= lens_t[:, None])[:, None, None, :]
+    qh = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = {}
+    # plain, kernel, kernel, plain: keep the comparison inside one call
+    for key, fn in (
+        ("plain", lambda: paged_attention_reference(q4, pk, pv, table, pos2)),
+        ("kernel", lambda: paged_flash_decode(q, pk, pv, table, lens_t)),
+        ("kernel2", lambda: paged_flash_decode(q, pk, pv, table, lens_t)),
+        ("plain2", lambda: paged_attention_reference(q4, pk, pv, table, pos2)),
+        ("library", lambda: sdpa(qh, gk, gv, attn_mask=mask)),
+    ):
+        ms[key] = time_cold(torch, fn)
+    bound, by, nbytes, flops = paged_bound(lens, bandwidth)
+    ms.update(bound_ms=bound, bound_by=by)
+    say("kernel", f"paged_flash_decode {label} fp32 B={batch} N={HEADS} "
+                  f"H={HEAD_DIM} bs={BLOCK_SIZE} mb={MAX_BLOCKS} "
+                  f"lens={list(lens)}: kernel {ms['kernel']:.4f}/"
+                  f"{ms['kernel2']:.4f} ms, plain {ms['plain']:.4f}/"
+                  f"{ms['plain2']:.4f} ms, library (SDPA on pre-gathered KV) "
+                  f"{ms['library']:.4f} ms, bound {bound:.4f} ms ({nbytes} "
+                  f"bytes, {flops} flops)")
+    return ms
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,16 @@
   port of the TPU kernel ``paged_flash_decode`` / ``_decode_kernel``
   (distributed_pytorch_example_tpu/ops/pallas/paged_attention.py): one
   query per row over the live blocks of the row's paged KV pool, online
-  softmax in float32, reading only the blocks the table names. Each launch
-  adds one to ``paged_flash_decode.launches``.
+  softmax in float32, reading only the blocks the table names. The sweep
+  over a row's blocks is split over :func:`decode_splits` CTAs per (row,
+  kv head), whose partial states a combine pass merges in split order.
+  Each call adds one to ``paged_flash_decode.launches``.
 - :func:`paged_attention_reference` is the plain version: gather the whole
   table out of the pool and run dense masked attention, as the JAX
   package's reference does. It serves ``seq > 1`` chunks and CPU tensors.
+- :func:`paged_decode_split_reference` is the split arithmetic in plain
+  torch (each split's (m, l, acc) over :func:`split_blocks`' ranges, merged
+  in the kernel's order), for the tests; nothing on the main path uses it.
 - :func:`paged_decode_attention` dispatches: a CPU tensor takes the
   reference; on a CUDA tensor ``seq == 1`` launches the kernel (or raises)
   and ``seq > 1`` takes the reference, as in JAX.
@@ -17,6 +22,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -29,6 +35,43 @@ from distributed_pytorch_example_tpu_torch.ops.attention import (
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 8
+# the split rule (see decode_splits and csrc/paged_decode.cu's note)
+SPLIT_CTAS_PER_SM = 8
+SPLIT_MIN_KEYS = 16
+MAX_SPLITS = 1024  # the combine kernel's limit
+NEG_INF = -1e30  # the kernel's: finite, exp() underflows to 0
+
+
+def decode_splits(batch, kv_heads, max_blocks, block_size, num_sms):
+    """How many CTAs share one (row, kv head)'s block sweep: about
+    ``SPLIT_CTAS_PER_SM`` CTAs per SM over the whole grid, at most one per
+    block of the table, none thinner than ``SPLIT_MIN_KEYS`` keys, and at
+    most ``MAX_SPLITS``.
+
+    A function of shapes only, never of the row lengths: reading those on
+    the host would cost a synchronisation per layer.
+    """
+    want = -(-SPLIT_CTAS_PER_SM * num_sms // (batch * kv_heads))
+    thin = -(-max_blocks * block_size // SPLIT_MIN_KEYS)
+    return max(1, min(want, max_blocks, thin, MAX_SPLITS))
+
+
+def split_blocks(pos, split, num_splits, block_size, max_blocks):
+    """The blocks ``[begin, end)`` that split ``split`` of a row whose query
+    sits at ``pos`` sweeps, as the kernel computes them: the row's live
+    blocks ``ceil((min(pos, cap) + 1) / block_size)`` (none for pos < 0),
+    cut into contiguous runs of ``ceil(live / num_splits)``; a split past
+    the last run is empty (``begin >= end``). ``pos`` is an int or an
+    integer tensor of positions; the bounds come back as tensors."""
+    last = torch.as_tensor(pos).clamp(max=max_blocks * block_size - 1)
+    live = torch.where(last < 0, 0, last // block_size + 1)
+    per_split = (live + num_splits - 1) // num_splits
+    return split * per_split, torch.minimum(live, (split + 1) * per_split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _kernel_fn():
@@ -36,7 +79,7 @@ def _kernel_fn():
     fn = lib.dpx_paged_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
@@ -107,22 +150,32 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """Single-token paged attention on the card; (batch, heads, head_dim).
 
-    Launches on the current stream without synchronising. Raises on any
+    Launches on the current stream without synchronising: the split sweep
+    and, when it has more than one split, the combine pass, into float32
+    scratch of ``batch * heads * splits * (head_dim + 2)``. Raises on any
     input the kernel does not take, on a failed build and on a refused
     launch; it never computes the result another way.
     """
     _check_kernel_inputs(q, pages_k, pages_v, page_table, row_lens)
     batch, num_heads, head_dim = q.shape
     num_blocks, block_size, kv_heads, _ = pages_k.shape
+    max_blocks = page_table.shape[1]
     fn = _kernel_fn()
+    splits = decode_splits(batch, kv_heads, max_blocks, block_size,
+                           _sm_count(q.device.index))
     out = torch.empty_like(q)
+    partials = None
+    if splits > 1:
+        partials = torch.empty(batch * num_heads * splits * (head_dim + 2),
+                               dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype], q.data_ptr(), pages_k.data_ptr(),
             pages_v.data_ptr(), page_table.data_ptr(), row_lens.data_ptr(),
-            out.data_ptr(), batch, num_heads, kv_heads, head_dim, block_size,
-            page_table.shape[1], num_blocks, 1.0 / math.sqrt(head_dim), stream,
+            out.data_ptr(), None if partials is None else partials.data_ptr(),
+            batch, num_heads, kv_heads, head_dim, block_size, max_blocks,
+            num_blocks, splits, 1.0 / math.sqrt(head_dim), stream,
         )
     if err != 0:
         raise RuntimeError(f"paged_flash_decode launch failed: cudaError {err}")
@@ -152,6 +205,57 @@ def paged_attention_reference(q, pages_k, pages_v, page_table, positions):
     return dot_product_attention(
         q, gk, gv, mask=visible, causal=False, use_flash=False
     )
+
+
+def paged_decode_split_reference(q, pages_k, pages_v, page_table, row_lens,
+                                 num_splits):
+    """The kernel's split arithmetic in plain torch, for the tests.
+
+    ``q`` (batch, heads, head_dim), ``row_lens`` (batch,) as for
+    :func:`paged_flash_decode`. Each split's (m, l, acc) is taken over the
+    keys ``key_pos <= row_lens[b]`` of :func:`split_blocks`' block range
+    (an empty split has m = NEG_INF, l = 0, acc = 0), and the splits merge
+    in order 0 .. num_splits - 1: M = max m_s, l = sum l_s e^(m_s - M),
+    out = sum acc_s e^(m_s - M) / l, with l == 0 -> 1. float32 throughout;
+    the result is cast to q's dtype.
+    """
+    batch, num_heads, head_dim = q.shape
+    num_blocks, block_size, kv_heads, _ = pages_k.shape
+    max_blocks = page_table.shape[1]
+    group = num_heads // kv_heads
+    keys = max_blocks * block_size
+    idx = page_table.long().clamp(0, num_blocks - 1)
+    gk, gv = (
+        p[idx].reshape(batch, keys, kv_heads, head_dim).float()
+        .repeat_interleave(group, dim=2)
+        for p in (pages_k, pages_v)
+    )
+    scores = torch.einsum(
+        "bnd,bknd->bnk", q.float() * (1.0 / math.sqrt(head_dim)), gk
+    )
+    key_pos = torch.arange(keys, device=q.device)
+    block = key_pos // block_size
+    pos = row_lens.long()
+    parts = []
+    for split in range(num_splits):
+        begin, end = split_blocks(pos, split, num_splits, block_size,
+                                  max_blocks)
+        mask = ((block[None, :] >= begin[:, None])
+                & (block[None, :] < end[:, None])
+                & (key_pos[None, :] <= pos[:, None]))[:, None, :]
+        s = torch.where(mask, scores, NEG_INF)
+        m = s.amax(-1)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bnk,bknd->bnd", p, gv)))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_sum = torch.zeros_like(top)
+    acc = torch.zeros(batch, num_heads, head_dim, device=q.device)
+    for m, l, a in parts:
+        w = torch.exp(m - top)
+        l_sum = l_sum + l * w
+        acc = acc + a * w[..., None]
+    safe = torch.where(l_sum == 0, 1.0, l_sum)
+    return (acc / safe[..., None]).to(q.dtype)
 
 
 def paged_decode_attention(q, pages_k, pages_v, page_table, positions):

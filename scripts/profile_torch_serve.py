@@ -26,7 +26,7 @@ sys.path.insert(0, ROOT)
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "paged_decode_kernel" in low:
+    if "paged_decode" in low:  # the K2 kernels of any version
         return "paged_decode (K2)"
     if "gemm" in low or "cutlass" in low or "matmul" in low:
         return "matmul"

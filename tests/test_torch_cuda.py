@@ -25,8 +25,10 @@ from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_reference,
 )
 from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+    decode_splits,
     paged_attention_reference,
     paged_decode_attention,
+    paged_decode_split_reference,
     paged_flash_decode,
 )
 from distributed_pytorch_example_tpu_torch.serving import (
@@ -107,6 +109,83 @@ def test_kernel_refuses_inputs_it_does_not_take(card):
             paged_flash_decode(*args)
             pytest.fail(f"{name} was accepted")
     assert paged_flash_decode.launches == before
+
+
+def split_count(q, pk, table):
+    """The kernel's split count for these inputs on this card."""
+    return decode_splits(
+        q.shape[0], pk.shape[2], table.shape[1], pk.shape[1],
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+    )
+
+
+def check_split_kernel(q, pk, pv, table, lens):
+    """K2 against its plain version and its split arithmetic on the same
+    inputs; a second call, and one after the scratch block is cleared, must
+    give the same bits. Returns the split count."""
+    dtype = q.dtype
+    splits = split_count(q, pk, table)
+    got = paged_flash_decode(q, pk, pv, table, lens)
+    ref = paged_attention_reference(
+        q.float()[:, None], pk.float(), pv.float(), table, lens[:, None]
+    )[:, 0]
+    split_ref = paged_decode_split_reference(
+        q.float(), pk.float(), pv.float(), table, lens, splits
+    )
+    for want in (ref, split_ref):
+        err = (got.float() - want).abs().max().item()
+        assert err <= TOL[dtype], (splits, err)
+    assert torch.equal(paged_flash_decode(q, pk, pv, table, lens), got)
+    pk[0] = 0
+    pv[0] = 0
+    assert torch.equal(paged_flash_decode(q, pk, pv, table, lens), got)
+    return splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (6, 2), (16, 2)],
+                         ids=["group1", "group3", "group8"])
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_split_kernel_on_mixed_rows(card, dtype, heads, kv_heads, head_dim):
+    """A 128-key row whose splits are all live beside one-block rows whose
+    other splits are empty, block edges and a position past the table."""
+    q, pk, pv, table, lens = chip_smoke.kernel_case(
+        torch, batch=6, heads=heads, kv_heads=kv_heads, head_dim=head_dim,
+        block_size=4, max_blocks=32, num_blocks=96,
+        lens=(127, 0, 3, 4, 61, 200), dtype=dtype, seed=head_dim + heads,
+    )
+    assert check_split_kernel(q, pk, pv, table, lens) > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("pos", [1023, 1500, 0],
+                         ids=["full-table", "past-table", "pos-0"])
+def test_split_kernel_on_one_row(card, dtype, pos):
+    """One row at the serving geometry: one block per split."""
+    q, pk, pv, table, lens = chip_smoke.kernel_case(
+        torch, batch=1, heads=12, kv_heads=12, head_dim=64, block_size=16,
+        max_blocks=64, num_blocks=80, lens=(pos,), dtype=dtype, seed=pos,
+    )
+    assert check_split_kernel(q, pk, pv, table, lens) == 64
+
+
+def test_kernel_call_never_synchronises(card):
+    """The split count comes from shapes: a call reads nothing back from
+    the card (PyTorch's sync debug mode raises on any synchronising op)."""
+    q, pk, pv, table, lens = chip_smoke.kernel_case(
+        torch, batch=8, heads=12, kv_heads=12, head_dim=64, block_size=16,
+        max_blocks=64, num_blocks=513, lens=chip_smoke.KERNEL_LENS,
+        dtype=torch.float32, seed=0,
+    )
+    paged_flash_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        paged_flash_decode(q, pk, pv, table, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_engine_decodes_through_the_kernel(card):

@@ -2,7 +2,10 @@
 
 The port's plain version (``paged_attention_reference``) is held against
 JAX's gather reference and against JAX's Pallas ``paged_flash_decode`` run
-in interpret mode, on the same numpy inputs. The CUDA kernel itself runs
+in interpret mode, on the same numpy inputs, and so is the kernel's split
+arithmetic (``paged_decode_split_reference``: the per-split softmax states
+over ``split_blocks``' ranges, merged in split order), with the split count
+rule ``decode_splits`` beside it. The CUDA kernel itself runs
 only on the card (chip_smoke.py holds it against the plain version there);
 here the tests pin the dispatch rules around it: CPU tensors take the
 plain version bit for bit, the kernel wrapper refuses anything that is not
@@ -19,9 +22,12 @@ from distributed_pytorch_example_tpu.ops.pallas import (
 )
 from distributed_pytorch_example_tpu_torch.ops import _build
 from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+    decode_splits,
     paged_attention_reference,
     paged_decode_attention,
+    paged_decode_split_reference,
     paged_flash_decode,
+    split_blocks,
 )
 
 torch.set_num_threads(2)
@@ -77,6 +83,98 @@ def test_reference_matches_jax_reference_and_kernel(num_heads, kv_heads):
     )
     np.testing.assert_allclose(got, np.asarray(jax_ref), atol=TOL, rtol=0)
     np.testing.assert_allclose(got, np.asarray(jax_kernel), atol=TOL, rtol=0)
+
+
+# a table of 8 blocks of 4 (keys 0..31): one-block rows whose other splits
+# are all empty, the last/first position of a block, a full table, and a
+# position past the table (its keys stop at 31)
+SPLIT_LENS = (0, 3, 4, 17, 31, 45)
+SPLIT_MAX_BLOCKS = 8
+
+
+@pytest.fixture(scope="module", params=[(4, 4), (4, 2)], ids=["mha", "gqa"])
+def split_case(request):
+    """Inputs with ``SPLIT_LENS`` and JAX's interpret-mode kernel on them."""
+    num_heads, kv_heads = request.param
+    rng = np.random.default_rng(7)
+    batch, head_dim, num_blocks = len(SPLIT_LENS), 16, 32
+    q = rng.standard_normal((batch, num_heads, head_dim)).astype(np.float32)
+    shape = (num_blocks, BLOCK_SIZE, kv_heads, head_dim)
+    pk = rng.standard_normal(shape).astype(np.float32)
+    pv = rng.standard_normal(shape).astype(np.float32)
+    pk[0] = pv[0] = 1e4  # the scratch block: unreachable
+    perm = rng.permutation(np.arange(1, num_blocks))
+    table = np.zeros((batch, SPLIT_MAX_BLOCKS), np.int32)
+    k = 0
+    for b, pos in enumerate(SPLIT_LENS):
+        live = min(pos // BLOCK_SIZE + 1, SPLIT_MAX_BLOCKS)
+        table[b, :live] = perm[k:k + live]
+        k += live
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    j = jnp.asarray
+    want = jax_paged.paged_flash_decode(
+        j(q), j(pk), j(pv), j(table), j(lens), interpret=True
+    )
+    return (q, pk, pv, table, lens), np.asarray(want)
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 7, SPLIT_MAX_BLOCKS])
+def test_split_reference_matches_jax_kernel(split_case, num_splits):
+    """The kernel's split arithmetic on the CPU against JAX's Pallas kernel
+    (interpret mode), at split counts from one to one per block."""
+    (q, pk, pv, table, lens), want = split_case
+    t = torch.from_numpy
+    got = paged_decode_split_reference(
+        t(q), t(pk), t(pv), t(table), t(lens), num_splits
+    )
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+def test_split_blocks_cover_each_live_block_once():
+    """Every live block of a row falls in exactly one split, no split
+    reaches past the row's last live block, and the live splits are a
+    prefix (the kernel's empty-split exit relies on begin >= end)."""
+    bs, mb = BLOCK_SIZE, SPLIT_MAX_BLOCKS
+    for num_splits in range(1, mb + 1):
+        for pos in range(-2, mb * bs + 6):
+            live = 0 if pos < 0 else min(pos, mb * bs - 1) // bs + 1
+            seen = []
+            ranges = [tuple(int(x) for x in split_blocks(
+                pos, s, num_splits, bs, mb)) for s in range(num_splits)]
+            for begin, end in ranges:
+                seen.extend(range(begin, end))
+                assert end <= live
+            assert seen == list(range(live)), (pos, num_splits, ranges)
+            empty = [end <= begin for begin, end in ranges]
+            assert empty == sorted(empty), (pos, num_splits, ranges)
+    # the tensor form gives the same ranges as the int form, row by row
+    pos = torch.arange(-2, mb * bs + 6)
+    begin, end = split_blocks(pos, 2, 3, bs, mb)
+    for i, p in enumerate(pos.tolist()):
+        assert (int(begin[i]), int(end[i])) == tuple(
+            int(x) for x in split_blocks(p, 2, 3, bs, mb))
+
+
+@pytest.mark.parametrize(
+    "batch,kv_heads,max_blocks,block_size,want",
+    [(8, 12, 64, 16, 11),   # serving: 8 slots x 12 heads, 1,024 keys
+     (1, 12, 64, 16, 64),   # one long row: one block per CTA
+     (4, 4, 16, 8, 8),      # the serve CLI's default: 16-key splits
+     (256, 12, 64, 16, 1),  # a grid that fills the card unsplit
+     (8, 12, 1, 16, 1),     # a one-block table
+     (1, 1, 2048, 16, 1024)],  # the combine's cap
+    ids=["serving", "single", "cli", "wide", "one-block", "capped"],
+)
+def test_decode_splits_rule(batch, kv_heads, max_blocks, block_size, want):
+    """The split count is a function of shapes only (132 SMs, an H100 SXM):
+    the serving shape gets at least two CTAs per (row, kv head), and no
+    split count leaves the table's range."""
+    got = decode_splits(batch, kv_heads, max_blocks, block_size, 132)
+    assert got == want
+    assert 1 <= got <= max_blocks
+    if (batch, kv_heads, max_blocks) == (8, 12, 64):
+        assert batch * kv_heads * got >= batch * kv_heads * 2
 
 
 def test_poisoned_scratch_block_does_not_move_output():
