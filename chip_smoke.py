@@ -46,10 +46,28 @@ last line:
    (K3b on every eligible scatter bucket), held against phase 6's first
    steps (losses, and the first step's gradients leaf by leaf); (ii) with
    int8-block gradients and a bf16 parameter gather (K3a), held against
-   (i). Each rank's K3a and K3b launch counts must be above 0.
+   (i). Each rank's K3a and K3b launch counts must be above 0. Run (i)
+   also saves its gathered checkpoint; the parent loads rank 0's file into
+   a one-process model on the card, whose parameters must equal both
+   ranks' own bit for bit (a SHA-256 over every parameter's bytes);
+9. checkpoint — GPT-2 124M at full width and depth, bf16, fused loss,
+   batch 16 x 1024, in a temporary directory deleted at the end: (a)
+   ``Trainer.fit``, one epoch of 10 steps with ``save_every_steps=5`` and
+   ``checkpoint_retain=2`` (tokens drawn from 256 ids, so validation
+   accuracy rises above 0 and ``best`` is written); ``best`` and
+   ``latest`` must exist, and ``latest`` loaded into a fresh model and
+   optimizer on the card must equal the live run's parameters, moments
+   and step count bit for bit; prints the calling thread's hold, the whole
+   save, the load and the file's bytes; (b) a fresh run resumed from the
+   step-5 entry of the history trail takes steps 6-10: K1 launches 12 x 5
+   forward and backward, and its losses must be within 1e-5 of (a)'s
+   (bit-equal is expected); (c) the training CLI is sent SIGTERM after
+   its first "Batch" line: it must exit 143 leaving ``latest`` with
+   ``batch_in_epoch``, and its ``--resume`` must log "Resuming epoch 0 at
+   batch k" and "Training completed".
 
-Each main path (serve, train, zero1) runs with every launch count set to 0
-just before it and read just after.
+Each main path (serve, train, zero1, checkpoint) runs with every launch
+count set to 0 just before it and read just after.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -57,11 +75,15 @@ its numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -1095,11 +1117,12 @@ def train(torch):
 
 
 def train_cli():
+    # checkpoints are phase 9's: none here
     runs = (
         ["--model", "gpt2", "--dataset", "synthetic-tokens", "--seq-len",
          "1024", "--dtype", "bfloat16", "--batch-size", "16", "--epochs", "1",
-         "--num-samples", "64"],
-        ["--epochs", "1"],
+         "--num-samples", "64", "--checkpoint-dir", ""],
+        ["--epochs", "1", "--checkpoint-dir", ""],
     )
     for args in runs:
         cmd = [sys.executable, "-m",
@@ -1158,10 +1181,21 @@ class Take:
             yield batch
 
 
-def path_worker(run: str, ref_path: str) -> int:
+def params_digest(model) -> str:
+    """SHA-256 over every parameter's bytes, in name order."""
+    digest = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        digest.update(name.encode())
+        digest.update(p.detach().cpu().contiguous().view(-1).numpy()
+                      .view("uint8").tobytes())
+    return digest.hexdigest()
+
+
+def path_worker(run: str, ref_path: str, ckpt_dir: str = "") -> int:
     """One rank of the two-process ZeRO-1 run (started by
     :func:`zero1_path` with REPLICAS / PROCESS_ID / MASTER_ADDR /
-    MASTER_PORT set); prints one ``chip_smoke_zero1`` JSON line."""
+    MASTER_PORT set); prints one ``chip_smoke_zero1`` JSON line. With
+    ``ckpt_dir`` the run saves its gathered checkpoint there."""
     import torch
     import torch.distributed
 
@@ -1200,7 +1234,8 @@ def path_worker(run: str, ref_path: str) -> int:
         bucket_bytes=DEFAULT_BUCKET_BYTES))
     trainer = Trainer(model, CausalLMTask(),
                       make_optimizer(model.parameters(), "adam", 1e-3),
-                      partitioner=part, log_every=ZERO1_STEPS)
+                      partitioner=part, log_every=ZERO1_STEPS,
+                      checkpoint_dir=ckpt_dir or None)
     train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
                                      seq_len=TRAIN_SEQ, seed=0)
     loader = Take(DeviceLoader(train_ds, TRAIN_BATCH, device="cuda", seed=0),
@@ -1235,6 +1270,9 @@ def path_worker(run: str, ref_path: str) -> int:
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "k3a": ring_all_gather.launches, "k3b": ring_reduce_scatter.launches,
         "grad_gaps": gaps,
+        "params_sha256": params_digest(model) if ckpt_dir else None,
+        # a multi-process save is synchronous: the hold is the whole save
+        "save_s": [r["hold_s"] for r in trainer._saver.records],
     }), flush=True)
     distributed.shutdown()
     return 0
@@ -1278,6 +1316,14 @@ def zero1_path(torch, ref_losses, ref_grads, world=ZERO1_WORLD):
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ref_path = str(_build.BUILD_DIR / "zero1_reference_grads.pt")
     torch.save(ref_grads, ref_path)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_zero1_")
+    try:
+        return zero1_runs(torch, ref_losses, ref_path, ckpt_dir, world)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def zero1_runs(torch, ref_losses, ref_path, ckpt_dir, world):
     results = {}
     for run in ZERO1_RUNS:
         port = free_port()
@@ -1288,7 +1334,8 @@ def zero1_path(torch, ref_losses, ref_grads, world=ZERO1_WORLD):
                    "MASTER_PORT": str(port)}
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--path-worker",
-                 run, ref_path], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                 run, ref_path, ckpt_dir if run == "zero1" else ""],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         t0 = time.perf_counter()
         outs = []
@@ -1350,6 +1397,8 @@ def zero1_path(torch, ref_losses, ref_grads, world=ZERO1_WORLD):
                         "in exact arithmetic)" if held
                         else "(int8 blocks: reported, not held)"))
         results[run] = lines
+        if run == "zero1":
+            zero1_checkpoint(torch, ckpt_dir, lines, world)
     plain = results["zero1"]
     lossy = results["zero1-int8"]
     for rank in range(world):
@@ -1364,6 +1413,288 @@ def zero1_path(torch, ref_losses, ref_grads, world=ZERO1_WORLD):
                  f"{LOSS_TOL} of the fp32 ZeRO-1 run on every rank")
     return (sum(results[run][0]["k3a"] for run in ZERO1_RUNS),
             sum(results[run][0]["k3b"] for run in ZERO1_RUNS))
+
+
+def zero1_checkpoint(torch, ckpt_dir, lines, world):
+    """Phase 9 (d): rank 0's gathered ZeRO-1 checkpoint, loaded into a
+    one-process model on the card, equals both ranks' parameters."""
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.robustness.integrity import (
+        read_verified,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        TrainState,
+        load_checkpoint,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train.checkpoint import (
+        LATEST_NAME,
+    )
+    from distributed_pytorch_example_tpu_torch.utils import msgpack
+
+    path = os.path.join(ckpt_dir, LATEST_NAME)
+    check(os.path.isfile(path), f"zero1: no gathered checkpoint at {path}")
+    stamp = msgpack.msgpack_restore(read_verified(path))["mesh_manifest"]
+    check(stamp["axes"] == {"data": world} and stamp["zero1_dims"],
+          f"zero1: checkpoint stamp axes {stamp['axes']}, "
+          f"{len(stamp['zero1_dims'])} ZeRO-1 leaves")
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
+                 seed=3)
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model.parameters(), "adam",
+                                                1e-3))
+    t0 = time.perf_counter()
+    _, epoch, _ = load_checkpoint(path, state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    digest = params_digest(model)
+    ranks = {rank: r["params_sha256"] for rank, r in lines.items()}
+    check(all(d == digest for d in ranks.values()),
+          f"zero1: parameters loaded from the gathered checkpoint "
+          f"({digest[:16]}) differ from the ranks' ({ranks})")
+    check(state.step == ZERO1_STEPS and epoch == 1,
+          f"zero1: checkpoint step {state.step}, epoch {epoch}")
+    say("zero1", f"zero1: rank 0's gathered checkpoint ({os.path.getsize(path)}"
+                 f" bytes, stamped data={world} with "
+                 f"{len(stamp['zero1_dims'])} ZeRO-1 leaves; synchronous "
+                 f"save {[round(x * 1e3, 1) for x in lines[0]['save_s']]} "
+                 f"ms on rank 0) loaded into one process on the card in "
+                 f"{load_s * 1e3:.1f} ms: parameters equal both ranks' bit "
+                 f"for bit (sha256 {digest[:16]})")
+    del state, model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 9. checkpoint: save, load and resume at full width
+# ---------------------------------------------------------------------------
+
+CKPT_EVERY, CKPT_RETAIN = 5, 2
+# the token ids the checkpoint phase draws from: the model (vocab 50257)
+# learns in 10 steps to put its mass on them, so validation accuracy rises
+# above 0 and the epoch writes `best`
+CKPT_VOCAB = 256
+# resumed steps 6-10 against the uninterrupted run's: the same kernels at
+# the same shapes on bit-exact state; bit-equal is expected
+RESUME_TOL = 1e-5
+
+
+def ckpt_run(torch, seed, **trainer_kw):
+    """A GPT-2 124M Trainer whose steps record their losses."""
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        Trainer,
+        make_optimizer,
+    )
+
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
+                 seed=seed)
+    trainer = Trainer(model, CausalLMTask(),
+                      make_optimizer(model.parameters(), "adam", 1e-3),
+                      log_every=CKPT_EVERY, **trainer_kw)
+    step_fn, losses = trainer.train_step, []
+
+    def recording(state, batch):
+        metrics = step_fn(state, batch)
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = recording
+    return trainer, losses
+
+
+def ckpt_loaders(torch):
+    from distributed_pytorch_example_tpu_torch.data import (
+        DeviceLoader,
+        SyntheticTokenDataset,
+    )
+
+    train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, vocab_size=CKPT_VOCAB,
+                                     seed=0)
+    val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                   vocab_size=CKPT_VOCAB, seed=1)
+    return (DeviceLoader(train_ds, TRAIN_BATCH, device="cuda", seed=0),
+            DeviceLoader(val_ds, TRAIN_BATCH, device="cuda", shuffle=False))
+
+
+def same_state(torch, a, b):
+    """Names of what differs between two train states, bit for bit:
+    parameters, Adam moments and step tensors, step and update counts."""
+    bad = [f"param {n}" for (n, p), (_, q) in zip(
+        a.model.named_parameters(), b.model.named_parameters())
+        if not torch.equal(p, q)]
+    names = dict((id(p), n) for n, p in a.model.named_parameters())
+    for p, q in zip(a.optimizer.params, b.optimizer.params):
+        sa, sb = a.optimizer.optimizer.state[p], b.optimizer.optimizer.state[q]
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(sa[key].cpu(), sb[key].cpu()):
+                bad.append(f"{key} of {names.get(id(p), '?')}")
+    if a.step != b.step or a.optimizer.updates != b.optimizer.updates:
+        bad.append(f"step {a.step}/{b.step}, updates "
+                   f"{a.optimizer.updates}/{b.optimizer.updates}")
+    return bad
+
+
+def checkpoint(torch):
+    """Phase 9 (a)-(c) in a temporary directory."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        checkpoint_save_load(torch, os.path.join(tmp, "a"))
+        checkpoint_cli(os.path.join(tmp, "cli"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpoint_save_load(torch, ckdir):
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        TrainState,
+        load_checkpoint,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train import checkpoint as ck
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+
+    # (a) one epoch of 10 steps, `latest` at step 5 and at the epoch's end
+    trainer, losses = ckpt_run(torch, 0, checkpoint_dir=ckdir,
+                               save_every_steps=CKPT_EVERY,
+                               checkpoint_retain=CKPT_RETAIN)
+    train_loader, val_loader = ckpt_loaders(torch)
+    reset_counts()
+    history = trainer.fit(train_loader, val_loader, epochs=1)
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    best = os.path.join(ckdir, ck.BEST_NAME)
+    latest = os.path.join(ckdir, ck.LATEST_NAME)
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"checkpoint: losses {losses}")
+    check(os.path.isfile(best) and os.path.isfile(latest),
+          f"checkpoint: best {os.path.isfile(best)}, latest "
+          f"{os.path.isfile(latest)} (val accuracy "
+          f"{history[0]['val_accuracy']:.4f} %)")
+    trail = ck._gathered_history_paths(latest)
+    check(len(trail) == CKPT_RETAIN, f"checkpoint: history {trail}")
+    records = trainer._saver.records
+    saves = [(os.path.basename(r["path"]), r["hold_s"] * 1e3,
+              r["wait_s"] * 1e3, r["copy_s"] * 1e3,
+              (r["copy_s"] + r["write_s"]) * 1e3, r["bytes"])
+             for r in records]
+    say("checkpoint", f"(a) GPT-2 124M bf16, {TRAIN_STEPS} steps, losses "
+                      f"{[round(x, 4) for x in losses]}, val accuracy "
+                      f"{history[0]['val_accuracy']:.3f} %; saves in order "
+                      f"(file: main-thread hold ms = wait for the previous "
+                      f"write + copy to host; whole save ms = copy + write; "
+                      f"bytes): "
+                      + "; ".join(f"{n}: hold {h:.1f} = wait {w:.1f} + copy "
+                                  f"{c:.1f}; whole {a:.1f}; {b}"
+                                  for n, h, w, c, a, b in saves))
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
+                 seed=1)
+    fresh = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model.parameters(), "adam",
+                                                1e-3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, epoch, extra = load_checkpoint(latest, fresh)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    bad = same_state(torch, trainer.state, fresh)
+    check(not bad and epoch == 1,
+          f"checkpoint: `latest` (epoch {epoch}) differs from the live run "
+          f"in {len(bad)} place(s): {bad[:5]}")
+    say("checkpoint", f"(a) `latest` loaded into a fresh model and optimizer"
+                      f" on the card in {load_ms:.1f} ms: every parameter, "
+                      f"Adam moment and step count equals the live run's bit"
+                      f" for bit (epoch {epoch}, step {fresh.step}, "
+                      f"best_accuracy {extra['best_accuracy']:.3f})")
+    del fresh, model, trainer
+    torch.cuda.empty_cache()
+
+    # (b) resume from the step-5 history entry, take steps 6-10
+    step5 = trail[-1]
+    resumed, got = ckpt_run(torch, 2)
+    train_loader, _ = ckpt_loaders(torch)
+    reset_counts()
+    resumed.fit(train_loader, None, epochs=1, resume=step5)
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    got = [float(x) for x in got]
+    rest = TRAIN_STEPS - CKPT_EVERY
+    check(len(got) == rest, f"checkpoint: resumed run took {len(got)} steps,"
+                            f" want {rest}")
+    gap = max(abs(a - b) for a, b in zip(got, losses[CKPT_EVERY:]))
+    check(fwd == LAYERS * rest and bwd == LAYERS * rest,
+          f"checkpoint: resumed run launched K1 forward {fwd}, backward "
+          f"{bwd} times, want {LAYERS} x {rest}")
+    check(gap <= RESUME_TOL,
+          f"checkpoint: resumed losses {got} vs {losses[CKPT_EVERY:]}: gap "
+          f"{gap:.3e} > {RESUME_TOL}")
+    say("checkpoint", f"(b) resumed from {os.path.basename(step5)} (step "
+                      f"{CKPT_EVERY}): steps {CKPT_EVERY + 1}-{TRAIN_STEPS} "
+                      f"losses {[round(x, 4) for x in got]}, largest gap to "
+                      f"the uninterrupted run {gap:.3e} (tol {RESUME_TOL}; "
+                      f"bit-equal: {got == losses[CKPT_EVERY:]}); K1 "
+                      f"launches fwd {fwd} bwd {bwd}")
+    del resumed
+    torch.cuda.empty_cache()
+
+
+def checkpoint_cli(ckdir):
+    """(c) SIGTERM after the first "Batch" line: rc 143 and `latest` with
+    a cursor; the relaunch with --resume continues at that batch."""
+    from distributed_pytorch_example_tpu_torch.robustness.integrity import (
+        read_verified,
+    )
+    from distributed_pytorch_example_tpu_torch.utils import msgpack
+
+    args = ["--model", "gpt2", "--dataset", "synthetic-tokens", "--seq-len",
+            "1024", "--dtype", "bfloat16", "--batch-size", "16", "--epochs",
+            "1", "--num-samples", "320", "--log-every", "1",
+            "--checkpoint-dir", ckdir]
+    cmd = [sys.executable, "-m", "distributed_pytorch_example_tpu_torch.train",
+           *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    seen = []
+    try:
+        for line in proc.stdout:
+            seen.append(line)
+            if "Batch" in line:
+                proc.send_signal(signal.SIGTERM)
+                break
+        seen += proc.stdout.readlines()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log = "".join(seen)
+    latest = os.path.join(ckdir, "latest_model.ckpt")
+    check(rc == 143 and os.path.isfile(latest),
+          f"checkpoint: SIGTERM'd CLI exit {rc}, latest "
+          f"{os.path.isfile(latest)}: {log[-3000:]}")
+    extra = msgpack.msgpack_restore(read_verified(latest))["extra"]
+    check(extra.get("batch_in_epoch", 0) > 0,
+          f"checkpoint: SIGTERM `latest` extra {extra}")
+    say("checkpoint", f"(c) CLI SIGTERM'd after its first Batch line: exit "
+                      f"{rc} in {time.perf_counter() - t0:.1f} s, `latest` at"
+                      f" batch {extra['batch_in_epoch']}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["--resume", latest], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    log = res.stdout + res.stderr
+    want = f"Resuming epoch 0 at batch {extra['batch_in_epoch']}"
+    check(res.returncode == 0 and want in log
+          and "Training completed" in log,
+          f"checkpoint: --resume exit {res.returncode}: {log[-3000:]}")
+    say("checkpoint", f"(c) --resume: exit 0 in {time.perf_counter() - t0:.1f}"
+                      f" s, logged \"{want}/...\" and \"Training completed\"")
 
 
 def free_port():
@@ -1405,6 +1736,8 @@ def main() -> int:
         train_cli()
         phase = "zero1"
         k3a["launches"], k3b["launches"] = zero1_path(torch, losses, grads)
+        phase = "checkpoint"
+        checkpoint(torch)
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
@@ -1419,5 +1752,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--path-worker"]:
-        sys.exit(path_worker(*sys.argv[2:4]))
+        sys.exit(path_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -122,9 +122,24 @@ class DeviceLoader:
                 for k, v in host.items()}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        return self.iter_from(0)
+
+    def iter_from(self, start_step: int) -> Iterator[Dict[str, torch.Tensor]]:
+        """This epoch's batches from ``start_step`` on (step-level resume).
+
+        The permutation is a pure function of (seed, epoch), so skipping
+        the first ``start_step`` batches gives exactly the batches an
+        uninterrupted run would see next; the skipped ones are never
+        assembled or moved.
+        """
+        if not 0 <= start_step <= self.steps_per_epoch:
+            raise ValueError(
+                f"start_step {start_step} outside [0, {self.steps_per_epoch}]"
+            )
         indices = self._epoch_indices()
+        steps = range(start_step, self.steps_per_epoch)
         if self.prefetch <= 0:
-            for step in range(self.steps_per_epoch):
+            for step in steps:
                 yield self._to_device(self._host_batch(step, indices))
             return
         ready: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -140,7 +155,7 @@ class DeviceLoader:
 
         def work() -> None:
             try:
-                for step in range(self.steps_per_epoch):
+                for step in steps:
                     if stop.is_set():
                         return
                     put(("batch", self._host_batch(step, indices)))
@@ -153,7 +168,7 @@ class DeviceLoader:
         )
         worker.start()
         try:
-            for _ in range(self.steps_per_epoch):
+            for _ in steps:
                 try:
                     kind, item = ready.get(timeout=_GET_TIMEOUT_S)
                 except queue.Empty:

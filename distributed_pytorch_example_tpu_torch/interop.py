@@ -1,134 +1,46 @@
 """Carry GPT-2 and SimpleNet weights (and gradients) between the JAX
 package and this port.
 
-The JAX package's GPT-2 param tree, as numpy arrays, maps onto the port's
-``state_dict`` by name:
+One mapping, :func:`flax_leaves`, names each of a model's parameters by
+its path in the JAX package's flax param tree, with the view that turns
+it into its JAX layout:
 
-- ``Dense`` ``kernel`` (in, out) <-> ``Linear.weight`` (out, in), ``bias``
-  <-> ``bias``;
-- ``LayerNorm`` ``scale`` / ``bias`` <-> ``weight`` / ``bias``;
-- ``wte.embedding`` (V, D) <-> ``wte.weight``;
-- ``wpe`` (1, max_len, D) <-> ``wpe``;
-- flax ``decoder.layer_<i>`` <-> ``decoder.layers.<i>``.
+- ``Linear`` ``weight`` (out, in) <-> ``Dense`` ``kernel`` (in, out),
+  transposed; ``bias`` <-> ``bias``;
+- ``LayerNorm`` ``weight`` / ``bias`` <-> ``scale`` / ``bias``;
+- ``Embedding`` ``weight`` (V, D) <-> ``embedding``;
+- a bare parameter keeps its name (GPT-2's ``wpe``, (1, max_len, D));
+- ``decoder.layers.<i>`` <-> flax ``decoder/layer_<i>``; SimpleNet's
+  ``Dense_<i>`` keep their names.
 
-SimpleNet's flax ``Dense_<i>`` layers map onto the port's ``Dense_<i>``.
-Any name -> tensor mapping shaped like a ``state_dict`` maps the same way,
-so :func:`grads_of` carries a model's gradients to the flax tree of the
-JAX package's ``jax.grad``, leaf by leaf.
+Leaves come in the order ``jax.tree_util.tree_leaves`` walks the JAX
+tree (paths sorted), so the wire layer (``parallel/wire.py``) lays out
+tiles, buckets and quantization blocks exactly as the JAX package does.
 
-:func:`flax_leaves` lists a model's parameters under their flax paths,
-in the order ``jax.tree_util.tree_leaves`` walks the JAX tree (paths
-sorted), with the view that turns each into its JAX layout: the wire
-layer (``parallel/wire.py``) lays out tiles, buckets and quantization
-blocks exactly as the JAX package does.
+:func:`params_to_flax` and :func:`params_from_flax` carry a model's
+parameters (or, through :func:`grads_of`, its gradients) to and from the
+flax tree along those paths, as the checkpoint does; ``train/state.py``
+carries the whole train state (step, optimizer, rng) on top.
 
 Both directions copy values exactly, so a round trip is bit-exact. This
 module imports neither JAX nor the JAX package: the tree is plain nested
-dicts of numpy arrays (``jax.device_get`` of the flax params).
+dicts of tensors or numpy arrays (``jax.device_get`` of the flax
+params).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 from torch import nn
 
 import numpy as np
 import torch
 
-_DENSE = ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.up", "mlp.down")
-_NORMS = ("ln1", "ln2")
-
-
-def _layer_count(tree: Mapping) -> int:
-    return len([k for k in tree["decoder"] if k.startswith("layer_")])
-
-
-def gpt2_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX GPT-2 params (nested dict of arrays) -> the port's state_dict."""
-    def t(a):
-        return torch.from_numpy(np.array(a, copy=True))
-
-    sd = {
-        "wte.weight": t(params["wte"]["embedding"]),
-        "wpe": t(params["wpe"]),
-        "final_ln.weight": t(params["final_ln"]["scale"]),
-        "final_ln.bias": t(params["final_ln"]["bias"]),
-    }
-    for i in range(_layer_count(params)):
-        layer = params["decoder"][f"layer_{i}"]
-        pre = f"decoder.layers.{i}"
-        for name in _DENSE:
-            group, proj = name.split(".")
-            dense = layer[group][proj]
-            sd[f"{pre}.{name}.weight"] = t(np.asarray(dense["kernel"]).T)
-            sd[f"{pre}.{name}.bias"] = t(dense["bias"])
-        for name in _NORMS:
-            sd[f"{pre}.{name}.weight"] = t(layer[name]["scale"])
-            sd[f"{pre}.{name}.bias"] = t(layer[name]["bias"])
-    return sd
-
-
-def gpt2_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The port's state_dict -> a JAX GPT-2 param tree of numpy arrays."""
-    def a(name):
-        return state_dict[name].detach().cpu().numpy().copy()
-
-    layers = sorted({
-        int(k.split(".")[2]) for k in state_dict if k.startswith("decoder.layers.")
-    })
-    decoder = {}
-    for i in layers:
-        pre = f"decoder.layers.{i}"
-        layer: dict = {"attn": {}, "mlp": {}}
-        for name in _DENSE:
-            group, proj = name.split(".")
-            layer[group][proj] = {
-                "kernel": np.ascontiguousarray(a(f"{pre}.{name}.weight").T),
-                "bias": a(f"{pre}.{name}.bias"),
-            }
-        for name in _NORMS:
-            layer[name] = {
-                "scale": a(f"{pre}.{name}.weight"),
-                "bias": a(f"{pre}.{name}.bias"),
-            }
-        decoder[f"layer_{i}"] = layer
-    return {
-        "wte": {"embedding": a("wte.weight")},
-        "wpe": a("wpe"),
-        "decoder": decoder,
-        "final_ln": {"scale": a("final_ln.weight"), "bias": a("final_ln.bias")},
-    }
-
-
-def simplenet_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX SimpleNet params -> the port's SimpleNet state_dict."""
-    sd = {}
-    for name, dense in params.items():
-        sd[f"{name}.weight"] = torch.from_numpy(
-            np.array(np.asarray(dense["kernel"]).T, copy=True))
-        sd[f"{name}.bias"] = torch.from_numpy(np.array(dense["bias"], copy=True))
-    return sd
-
-
-def simplenet_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The port's SimpleNet state_dict (or gradients) -> a flax tree."""
-    names = sorted({k.split(".")[0] for k in state_dict})
-    return {
-        name: {
-            "kernel": np.ascontiguousarray(
-                state_dict[f"{name}.weight"].detach().cpu().numpy().T),
-            "bias": state_dict[f"{name}.bias"].detach().cpu().numpy().copy(),
-        }
-        for name in names
-    }
-
-
 def grads_of(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's gradients by parameter name, shaped like its
-    state_dict, for :func:`gpt2_state_dict_to_flax` /
-    :func:`simplenet_state_dict_to_flax`."""
+    """The model's gradients by parameter name, for
+    :func:`params_to_flax`."""
     return {name: p.grad for name, p in model.named_parameters()
             if p.grad is not None}
 
@@ -186,3 +98,73 @@ def flax_leaves(model: nn.Module) -> List[FlaxLeaf]:
             attr, (attr, False))
         leaves.append(FlaxLeaf(tuple(path) + (leaf,), name, transposed))
     return sorted(leaves, key=lambda leaf: leaf.path)
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A CPU tensor over a decoded checkpoint leaf (a numpy array, copied
+    only when it is read-only), or the tensor itself."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    if not x.flags.writeable:
+        x = x.copy()
+    return torch.from_numpy(x)
+
+
+def params_to_flax(model: nn.Module,
+                   tensors: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> dict:
+    """The model's parameters as its flax param tree, each leaf a view in
+    the JAX layout (keys in the JAX tree's sorted order). ``tensors``, a
+    name -> tensor mapping shaped like the parameters (a ``state_dict``,
+    :func:`grads_of`), maps in their place; its leaves absent there are
+    left out."""
+    named = (dict(model.named_parameters()) if tensors is None
+             else tensors)
+    tree: dict = {}
+    for leaf in flax_leaves(model):
+        if leaf.name not in named:
+            continue
+        node = tree
+        for key in leaf.path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf.path[-1]] = leaf.to_jax(named[leaf.name].detach())
+    return tree
+
+
+@torch.no_grad()
+def params_from_flax(model: nn.Module, tree: Mapping) -> None:
+    """Copy a flax param tree (numpy arrays or tensors) into the model's
+    parameters, exactly; raises, before copying anything, on a missing,
+    extra or misshapen leaf."""
+    named = dict(model.named_parameters())
+    leaves = flax_leaves(model)
+    want = {leaf.path for leaf in leaves}
+
+    def paths(node, prefix=()):
+        if isinstance(node, Mapping):
+            for key, value in node.items():
+                yield from paths(value, prefix + (key,))
+        else:
+            yield prefix
+
+    extra = set(paths(tree)) - want
+    if extra:
+        raise ValueError("checkpoint params hold leaves this model lacks: "
+                         + ", ".join("/".join(p) for p in sorted(extra)))
+    pairs = []
+    for leaf in leaves:
+        node = tree
+        for key in leaf.path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise ValueError(f"checkpoint params lack {leaf.key}")
+            node = node[key]
+        dst = leaf.to_jax(named[leaf.name])
+        src = as_tensor(node)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"checkpoint param {leaf.key}: shape "
+                             f"{tuple(src.shape)}, this model's "
+                             f"{tuple(dst.shape)}")
+        pairs.append((dst, src))
+    for dst, src in pairs:
+        dst.copy_(src)

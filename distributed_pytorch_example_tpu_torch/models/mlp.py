@@ -6,8 +6,11 @@ ReLU -> Dropout(0.2) -> Dense(256, 10); 269,322 parameters. The layers
 keep flax's auto-names (``Dense_0`` .. ``Dense_2``) so :mod:`interop`
 maps the trees by name. Weights are flax's defaults (lecun-normal kernels,
 zero biases) drawn on the CPU from ``seed``; dropout draws its keep-masks
-from an explicit generator on the model's device, seeded from ``seed``
-(its bits differ from JAX's, so tests compare with dropout off).
+from an explicit generator on the model's device, which the train step
+reseeds from (``seed``, step) before every step (:meth:`SimpleNet.fold_in`,
+the counterpart of JAX's ``fold_in(rng, step)``), so a resumed run draws
+the masks the uninterrupted run drew (the bits differ from JAX's, so tests
+compare with dropout off).
 """
 
 from __future__ import annotations
@@ -47,7 +50,13 @@ class SimpleNet(nn.Module):
         for lin in (self.Dense_0, self.Dense_1, self.Dense_2):
             lecun_normal_(lin.weight, gen)
             nn.init.zeros_(lin.bias)
+        self.seed = seed
         self._dropout_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def fold_in(self, step: int) -> None:
+        """Reseed the dropout generator from (seed, step)."""
+        self._dropout_gen.manual_seed(
+            ((self.seed + 1) * 0x9E3779B1 + int(step)) % 2**63)
 
     def _dropout(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or not self.dropout_rate:

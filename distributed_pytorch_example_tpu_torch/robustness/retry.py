@@ -2,13 +2,14 @@
 
 Backoff is deterministic (no jitter), so a seeded fault plan that heals
 after N failures always sees the same retry schedule. The serving engine
-runs its device fetches under :func:`with_retries`.
+runs its device fetches, and the checkpoint ``AsyncSaver`` its writes,
+under :func:`with_retries`.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Tuple, Type
+from typing import Callable, Optional, Tuple, Type
 
 from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
 
@@ -34,12 +35,14 @@ def with_retries(
     retry_on: Tuple[Type[BaseException], ...] = (OSError,),
     describe: str = "operation",
     sleep: Callable[[float], None] = time.sleep,
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
 ):
     """Call ``fn()``; on a ``retry_on`` failure, back off and try again.
 
     At most ``attempts`` total calls. The final failure propagates
     unchanged (callers keep their native exception type); every retried
-    failure is logged with the delay.
+    failure is logged with the delay. ``on_retry(attempt_index, error)``
+    fires before each re-attempt (counters).
     """
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
@@ -59,4 +62,6 @@ def with_retries(
                 "%s failed (attempt %d/%d): %s — retrying in %.2fs",
                 describe, attempt + 1, attempts, err, delay,
             )
+            if on_retry is not None:
+                on_retry(attempt, err)
             sleep(delay)

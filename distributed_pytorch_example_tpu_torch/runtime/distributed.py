@@ -148,7 +148,7 @@ def initialize(
     ``$DPX_RENDEZVOUS_RETRIES`` + 1 = 4, with ``$DPX_RENDEZVOUS_BACKOFF``
     (default 1.0 s) as the first backoff.
     """
-    from distributed_pytorch_example_tpu_torch.robustness import retry
+    from distributed_pytorch_example_tpu_torch.robustness import chaos, retry
 
     if config is None:
         config = resolve_config()
@@ -165,6 +165,7 @@ def initialize(
         torch.cuda.set_device(config.process_id % torch.cuda.device_count())
 
     def join():
+        chaos.transient_failure("rendezvous")  # no-op without a plan
         dist.init_process_group(
             backend=backend,
             init_method=f"tcp://{config.coordinator_address}",

@@ -17,6 +17,12 @@ gradient collectives, ``--overlap-buckets`` fuses them into buckets (on
 the card, the ring kernels carry them), and ``--grad-accum k`` applies the
 optimizer every k-th step to the mean of k steps' gradients (the JAX CLI's
 ``optax.MultiSteps``).
+Checkpoints go to ``--checkpoint-dir`` (default ``./checkpoints``): best
+and latest at each epoch's end, ``latest`` every ``--save-every-steps``
+batches too, and ``metrics.jsonl``. ``--resume`` takes a checkpoint of
+either package. SIGTERM (SIGINT) finishes the step in flight, saves
+``latest`` with the loader cursor and exits 143 (130); the next launch
+with ``--resume`` continues at that batch.
 ``--device cpu`` runs on the CPU; the default, ``cuda``, raises without a
 card. Flags of the JAX CLI that this slice does not serve are refused.
 """
@@ -43,6 +49,7 @@ from distributed_pytorch_example_tpu_torch.parallel.wire import (
 )
 from distributed_pytorch_example_tpu_torch.robustness import (
     BadStepBudgetExceeded,
+    chaos,
 )
 from distributed_pytorch_example_tpu_torch.runtime import distributed as dist
 from distributed_pytorch_example_tpu_torch.runtime.device import resolve_device
@@ -50,7 +57,10 @@ from distributed_pytorch_example_tpu_torch.runtime.logging import (
     get_logger,
     setup_logging,
 )
-from distributed_pytorch_example_tpu_torch.train.loop import Trainer
+from distributed_pytorch_example_tpu_torch.train.loop import (
+    PreemptionInterrupt,
+    Trainer,
+)
 from distributed_pytorch_example_tpu_torch.train.optimizers import (
     make_optimizer,
 )
@@ -106,9 +116,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_unserved(parser, args)
-    if args.checkpoint_dir:
-        parser.error("--checkpoint-dir: checkpoints are not ported to the "
-                     "PyTorch package yet (pass '' or leave the default)")
+    if args.checkpoint_format == "sharded":
+        parser.error("--checkpoint-format sharded is not ported to the "
+                     "PyTorch package yet (ROADMAP.md queue 1, item 9); use "
+                     "auto or gathered")
     if args.model not in _DATASETS:
         parser.error(f"--model {args.model!r} is not ported yet; the port "
                      f"trains {sorted(_DATASETS)}")
@@ -122,6 +133,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "[2, 1024]")
 
     setup_logging()
+    if args.chaos:
+        chaos.install(
+            chaos.ChaosPlan.from_json(args.chaos)
+            if args.chaos.lstrip().startswith("{")
+            else chaos.preset(args.chaos)
+        )
     device = resolve_device(args.device)
     config = dist.initialize(device=device)
     if device.type == "cuda":
@@ -165,12 +182,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         ),
     )
     trainer = Trainer(model, task, optimizer, partitioner=partitioner,
+                      checkpoint_dir=args.checkpoint_dir,
                       log_every=args.log_every, seed=args.seed,
+                      metrics_file=args.metrics_file,
+                      checkpoint_format=args.checkpoint_format,
+                      save_every_steps=args.save_every_steps,
                       max_bad_steps=args.max_bad_steps,
-                      skip_nonfinite=not args.no_skip_nonfinite)
+                      skip_nonfinite=not args.no_skip_nonfinite,
+                      checkpoint_retain=args.checkpoint_retain)
     try:
         trainer.fit(train_loader, val_loader, epochs=args.epochs,
                     resume=args.resume)
+    except PreemptionInterrupt as err:
+        # the checkpoint landed in fit(); 143 / 130 tell the launcher not to
+        # restart, and the next launch resumes at the saved batch
+        dist.shutdown()
+        return err.exit_code
     except BadStepBudgetExceeded:
         logger.exception("graft-armor: persistent nonfinite fault; aborting")
         dist.shutdown()

@@ -19,12 +19,30 @@ schedule as they were. lamb and adafactor are not in this slice and raise.
 update plus its re-replication gather): the optimizer keeps state only for
 this rank's tile of every leaf the partitioner shards, and full state for
 the rest.
+
+Checkpoints carry the optimizer as the optax state tree of the same
+configuration (:meth:`Optimizer.state_tree`, :meth:`Optimizer.
+load_state_tree`): adam ``{'0': {count, mu, nu}, '1': {}}``, adamw one
+more ``{}``, sgd ``{'0': {trace}, '1': {}}``; a schedule's state is
+``{count}`` in place of the last ``{}``; clipping wraps the chain as
+``{'0': {}, '1': chain}``; ``every_k > 1`` wraps it in ``optax.MultiSteps``
+(``mini_step``, ``gradient_step``, ``inner_opt_state``, ``acc_grads``,
+``skip_state``). Every count is the number of applied updates (the
+``LambdaLR``'s ``last_epoch``; torch keeps Adam's as a float per
+parameter, optax one int32), and neither package advances it on a skipped
+step. A :class:`StateLayout` says where each leaf's state lives (the
+parameter, or under ZeRO-1 this rank's tile) and maps it to the full leaf
+in the JAX layout: a ``Dense`` kernel's moments transpose like the kernel,
+and a tile's gather from every rank on save (one library all-gather) and
+are sliced back out on load.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
 
 import torch
 
@@ -92,11 +110,15 @@ class Optimizer:
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], lr: float,
-                 grad_clip_norm: Optional[float] = None, every_k: int = 1):
+                 grad_clip_norm: Optional[float] = None, every_k: int = 1,
+                 scheduled: bool = False):
         self.optimizer = optimizer
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
         self.every_k = every_k
+        # optax holds a schedule's count (ScaleByScheduleState) unless the
+        # learning rate is a constant (JAX make_schedule returns a float)
+        self.scheduled = scheduled
         # the global norm of the current ``.grad``s (ZeRO-1 swaps in the
         # cross-rank one); optax.MultiSteps' running mean and its count
         self.norm_fn: Callable[[], torch.Tensor] = lambda: global_norm(
@@ -173,6 +195,209 @@ class Optimizer:
     def lr(self) -> float:
         return self.optimizer.param_groups[0]["lr"]
 
+    # -- the optax state tree (checkpoints) ---------------------------------
+
+    @property
+    def updates(self) -> int:
+        """Updates applied so far (optax's ``count``)."""
+        return self.scheduler.last_epoch
+
+    def _slots(self) -> Dict[str, str]:
+        """optax moment name -> torch state key."""
+        if isinstance(self.optimizer, torch.optim.SGD):
+            return {"trace": "momentum_buffer"}
+        return {"mu": "exp_avg", "nu": "exp_avg_sq"}
+
+    def _chain(self, first: dict, count: int) -> dict:
+        parts = [first]
+        if isinstance(self.optimizer, torch.optim.AdamW):
+            parts.append({})  # add_decayed_weights
+        parts.append({"count": _i32(count)} if self.scheduled else {})
+        inner = {str(i): part for i, part in enumerate(parts)}
+        if self.grad_clip_norm:
+            inner = {"0": {}, "1": inner}  # clip_by_global_norm: no state
+        return inner
+
+    def state_tree(self, layout: "StateLayout") -> dict:
+        """The optimizer state as the optax tree (``to_state_dict`` form),
+        every moment a full leaf in the JAX layout (a torch tensor where
+        the state lives; under ZeRO-1 a collective: every rank calls it)."""
+        count = self.updates
+        state = self.optimizer.state
+        first: dict = {}
+        if not isinstance(self.optimizer, torch.optim.SGD):
+            first["count"] = _i32(count)
+        for name, key in self._slots().items():
+            moments = [state.get(t, {}).get(key) for t in layout.targets]
+            moments = [m if m is not None
+                       else torch.zeros_like(t, dtype=torch.float32)
+                       for m, t in zip(moments, layout.targets)]
+            first[name] = layout.tree(layout.to_full(moments))
+        inner = self._chain(first, count)
+        if self.every_k == 1:
+            return inner
+        if self._acc is None:
+            acc = [torch.zeros_like(t, dtype=torch.float32)
+                   for t in layout.targets]
+        else:  # the running mean is kept in the optimizer's param order
+            by_param = {id(p): a for p, a in zip(self.params, self._acc)}
+            acc = [by_param[id(t)] for t in layout.targets]
+        return {"mini_step": _i32(self._mini_step),
+                "gradient_step": _i32(count),
+                "inner_opt_state": inner,
+                "acc_grads": layout.tree(layout.to_full(acc)),
+                "skip_state": {}}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: dict, layout: "StateLayout",
+                        check_only: bool = False) -> None:
+        """Restore :meth:`state_tree`'s form (written by either package);
+        raises, before changing anything, on a tree of another optimizer
+        configuration or model. ``check_only``: only that check."""
+        mini, acc = 0, None
+        if self.every_k > 1:
+            _expect_keys(tree, ("mini_step", "gradient_step",
+                                "inner_opt_state", "acc_grads",
+                                "skip_state"), "opt_state")
+            mini = int(tree["mini_step"])
+            acc = layout.flat(tree["acc_grads"])
+            tree = tree["inner_opt_state"]
+        want = self._chain({}, 0)
+        if self.grad_clip_norm:
+            _expect_keys(tree, want.keys(), "opt_state (clipped)")
+            tree, want = tree["1"], want["1"]
+        _expect_keys(tree, want.keys(), "opt_state chain")
+        first, last = tree["0"], tree[str(len(want) - 1)]
+        names = list(self._slots())
+        _expect_keys(first, names if isinstance(self.optimizer,
+                                                torch.optim.SGD)
+                     else ["count"] + names, "opt_state/0")
+        _expect_keys(last, ["count"] if self.scheduled else [],
+                     "the schedule's state")
+        count = None
+        if "count" in first:
+            count = int(first["count"])
+        elif "count" in last:
+            count = int(last["count"])
+        moments = {name: layout.flat(first[name]) for name in names}
+        if check_only:
+            return
+        moments = {name: layout.from_full(m) for name, m in moments.items()}
+        sgd = isinstance(self.optimizer, torch.optim.SGD)
+        for i, target in enumerate(layout.targets):
+            st = self.optimizer.state[target]
+            for name, key in self._slots().items():
+                st[key] = moments[name][i].to(target.device, target.dtype)
+            if not sgd:
+                group = next(g for g in self.optimizer.param_groups
+                             if any(p is target for p in g["params"]))
+                device = (target.device if group.get("capturable")
+                          or group.get("fused") else "cpu")
+                st["step"] = torch.tensor(float(count or 0),
+                                          dtype=torch.float32, device=device)
+        self._mini_step = mini
+        self._acc = None
+        if acc is not None and mini:
+            by_param = {id(t): a.to(t.device, torch.float32)
+                        for t, a in zip(layout.targets, layout.from_full(acc))}
+            self._acc = [by_param[id(p)] for p in self.params]
+        if count is not None:
+            sched = self.scheduler
+            sched.last_epoch = count
+            for group, base in zip(self.optimizer.param_groups,
+                                   sched.base_lrs):
+                group["lr"] = base * self._factor(count)
+            sched._last_lr = [g["lr"] for g in self.optimizer.param_groups]
+
+
+def _i32(n: int) -> np.ndarray:
+    """A 0-d int32 array: how optax and the JAX train state hold a
+    count."""
+    return np.asarray(n, dtype=np.int32)
+
+
+def _expect_keys(tree, keys, what: str) -> None:
+    got = set(tree) if isinstance(tree, dict) else None
+    if got != set(keys):
+        raise ValueError(
+            f"checkpoint {what}: keys {sorted(got) if got is not None else tree!r}"
+            f", this optimizer's are {sorted(keys)} (another optimizer, "
+            "clipping, schedule or every_k?)")
+
+
+def _nest(paths: Sequence[tuple], values: Sequence) -> dict:
+    tree: dict = {}
+    for path, value in zip(paths, values):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _lookup(tree, path: tuple, what: str = "leaf"):
+    node = tree
+    for key in path:
+        if not isinstance(node, dict) or key not in node:
+            raise ValueError(f"checkpoint has no {what} {'/'.join(path)}")
+        node = node[key]
+    return node
+
+
+class StateLayout:
+    """Where the optimizer keeps each flax leaf's state (``targets``, in
+    the JAX leaf order) and how it maps to the full leaf in the JAX
+    layout: here, the parameter itself, a ``Dense`` kernel transposed.
+    :class:`ShardedUpdate` gives the ZeRO-1 layout. ``partitioner`` stamps
+    the checkpoint's mesh manifest (None: replicated)."""
+
+    partitioner = None
+
+    def __init__(self, model: torch.nn.Module):
+        self.leaves = interop.flax_leaves(model)
+        named = dict(model.named_parameters())
+        self.targets: List[torch.Tensor] = [named[leaf.name]
+                                            for leaf in self.leaves]
+
+    @property
+    def paths(self) -> List[tuple]:
+        return [leaf.path for leaf in self.leaves]
+
+    def tree(self, fulls: Sequence) -> dict:
+        """Full leaves in the JAX order -> the nested flax tree."""
+        return _nest(self.paths, fulls)
+
+    def flat(self, tree: dict) -> list:
+        """The nested flax tree -> its leaves in the JAX order, each
+        checked against the leaf's JAX shape."""
+        out = []
+        for leaf, full in zip(self.leaves, self.full_shapes()):
+            value = _lookup(tree, leaf.path)
+            if tuple(value.shape) != full:
+                raise ValueError(f"checkpoint leaf {leaf.key}: shape "
+                                 f"{tuple(value.shape)}, want {full}")
+            out.append(value)
+        return out
+
+    def full_shapes(self) -> List[tuple]:
+        return [tuple(leaf.to_jax(t).shape)
+                for leaf, t in zip(self.leaves, self.targets)]
+
+    def to_full(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """State tensors shaped like the targets -> full JAX-layout
+        leaves."""
+        return [leaf.to_jax(t) for leaf, t in zip(self.leaves, tensors)]
+
+    def from_full(self, fulls: Sequence) -> List[torch.Tensor]:
+        """Full JAX-layout leaves (arrays or tensors) -> tensors shaped
+        like the targets."""
+        return [leaf.from_jax(interop.as_tensor(f)).contiguous()
+                for leaf, f in zip(self.leaves, fulls)]
+
+    def refresh(self) -> None:
+        """Re-derive whatever the layout keeps beside the parameters
+        after they were loaded (nothing here)."""
+
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over every gradient, as a float32 device
@@ -216,6 +441,7 @@ class ShardedUpdate:
         else:
             by_path = dict.fromkeys(shapes)
         self.dims = [by_path[leaf.key] for leaf in self.leaves]
+        self.partitioner = partitioner
         self.rank, self.world = rank, world
         self.tiles: List[Optional[torch.Tensor]] = []
         self.chunk_shapes: List[Optional[tuple]] = []
@@ -280,6 +506,11 @@ class ShardedUpdate:
             count = count + nonfinite_count(rest)
         return count
 
+    def layout(self) -> "ShardedLayout":
+        """The checkpoint layout of this update: tiles gathered on save,
+        sliced on load."""
+        return ShardedLayout(self)
+
     @torch.no_grad()
     def replicate(self, config: "wirelib.WireConfig") -> None:
         """Gather every updated tile back into its full parameter: one
@@ -313,6 +544,62 @@ class ShardedUpdate:
                                                  self.world)
                 self.tiles[i].copy_(rows[self.rank].reshape(
                     self.tiles[i].shape))
+
+
+class ShardedLayout(StateLayout):
+    """The ZeRO-1 layout: a sharded leaf's state lives on this rank's
+    tile. Saving gathers every rank's tiles in one library all-gather
+    (the JAX package's ``process_allgather``; a collective, so every rank
+    saves); loading slices this rank's tile out of the full leaf."""
+
+    def __init__(self, update: ShardedUpdate):
+        self.update = update
+        self.leaves = update.leaves
+        self.partitioner = update.partitioner
+        self.targets = [t if t is not None else p
+                        for t, p in zip(update.tiles, update.params)]
+
+    def full_shapes(self) -> List[tuple]:
+        return [tuple(leaf.to_jax(p).shape)
+                for leaf, p in zip(self.leaves, self.update.params)]
+
+    @torch.no_grad()
+    def to_full(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        u = self.update
+        out = [None if d is not None else leaf.to_jax(t)
+               for leaf, t, d in zip(self.leaves, tensors, u.dims)]
+        idx = [i for i, d in enumerate(u.dims) if d is not None]
+        if idx:
+            flat = torch.cat([tensors[i].reshape(-1).float() for i in idx])
+            rows = distributed.all_gather_tiled(flat[None])  # (world, n)
+            offset = 0
+            for i in idx:
+                n = tensors[i].numel()
+                out[i] = wirelib._unscatter(rows[:, offset:offset + n],
+                                            u.dims[i], u.chunk_shapes[i])
+                offset += n
+        return out
+
+    def from_full(self, fulls: Sequence) -> List[torch.Tensor]:
+        u = self.update
+        out = []
+        for leaf, f, d, cs in zip(self.leaves, fulls, u.dims, u.chunk_shapes):
+            f = interop.as_tensor(f)
+            if d is None:
+                out.append(leaf.from_jax(f).contiguous())
+            else:
+                rows, _ = wirelib._scatter_parts(f, d, u.world)
+                out.append(rows[u.rank].reshape(cs).clone())
+        return out
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        """Slice each tile again out of its (just loaded) parameter."""
+        u = self.update
+        for leaf, p, tile, d in zip(u.leaves, u.params, u.tiles, u.dims):
+            if tile is not None:
+                rows, _ = wirelib._scatter_parts(leaf.to_jax(p), d, u.world)
+                tile.copy_(rows[u.rank].reshape(tile.shape))
 
 
 def make_optimizer(
@@ -359,4 +646,6 @@ def make_optimizer(
     if momentum != 0.9 and name != "sgd":
         logger.warning("momentum=%s only applies to optimizer 'sgd' (got %r)",
                        momentum, name)
-    return Optimizer(opt, sched, lr, grad_clip_norm, every_k)
+    return Optimizer(opt, sched, lr, grad_clip_norm, every_k,
+                     scheduled=schedule.lower() != "constant"
+                     or bool(warmup_steps))

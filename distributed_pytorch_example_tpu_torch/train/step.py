@@ -168,6 +168,9 @@ def build_train_step(
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, optimizer = state.model, state.optimizer
         model.train()
+        fold_in = getattr(model, "fold_in", None)
+        if fold_in is not None:  # dropout draws from (seed, step) alone
+            fold_in(state.step)
         if manual:
             sharded(state)  # rebinds the optimizer before its first use
         # the model's own grads too: under ZeRO-1 the optimizer holds the
@@ -197,7 +200,14 @@ def build_train_step(
         state.step += 1
         return metrics
 
+    def layout(state: TrainState):
+        """Where the optimizer keeps its state, for checkpoints: the
+        ZeRO-1 / wire update's tiles (built here if no step has run yet),
+        or None for the replicated parameters."""
+        return sharded(state).layout() if manual else None
+
     train_step.sharded = sharded  # the ZeRO-1 / wire update, for checks
+    train_step.layout = layout
     return train_step
 
 

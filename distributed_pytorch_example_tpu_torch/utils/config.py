@@ -1,9 +1,7 @@
 """Command-line configuration (the part of the JAX package's
 utils/config.py that the training slice serves).
 
-Flags keep the JAX package's names and defaults, with one exception:
-``--checkpoint-dir`` defaults to ``""`` (no checkpoints) until the
-checkpoint format lands (ROADMAP.md queue 1). The JAX package's other
+Flags keep the JAX package's names and defaults. The JAX package's other
 flags are accepted by name so that a JAX command line parses, and
 :func:`check_unserved` refuses any of them set away from its default.
 """
@@ -39,14 +37,9 @@ UNSERVED = {
     "data_dir": None,
     "profile_dir": None,
     "profile_steps": "10,13",
-    "checkpoint_format": "auto",
-    "metrics_file": None,
     "telemetry_every": 0,
-    "save_every_steps": 0,
     "shard_cache_mb": 0,
-    "checkpoint_retain": 3,
     "publish_dir": None,
-    "chaos": None,
 }
 
 
@@ -58,13 +51,13 @@ def add_reference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
                         "global batch = batch-size * number of processes")
     parser.add_argument("--lr", type=float, default=0.001)
     parser.add_argument("--num-samples", type=int, default=10000)
-    parser.add_argument("--checkpoint-dir", type=str, default="",
-                        help="checkpoints are not ported yet: the default "
-                        "is '' (none), and a directory is refused")
+    parser.add_argument("--checkpoint-dir", type=str, default="./checkpoints",
+                        help="best/latest checkpoints and metrics.jsonl; "
+                        "'' writes none")
     parser.add_argument("--resume", type=str, default=None,
-                        help="a missing path trains from scratch "
-                        "(reference parity); an existing one is refused "
-                        "until checkpoints are ported")
+                        help="a checkpoint of either package to resume "
+                        "from; a missing path trains from scratch "
+                        "(reference parity)")
     return parser
 
 
@@ -141,6 +134,27 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--no-telemetry", action="store_true",
                         help="accepted for JAX parity; the port has no "
                         "telemetry scope yet")
+    parser.add_argument("--checkpoint-format", type=str, default="auto",
+                        choices=("auto", "gathered", "sharded"),
+                        help="gathered: one all-gathered file (reference "
+                        "parity); auto: gathered at every process count "
+                        "(the JAX package picks sharded for several "
+                        "processes); sharded is not ported yet")
+    parser.add_argument("--metrics-file", type=str, default=None,
+                        help="JSONL epoch-metrics path (default: "
+                        "<checkpoint-dir>/metrics.jsonl)")
+    parser.add_argument("--save-every-steps", type=int, default=0,
+                        help=">0: also write `latest` every N train batches "
+                        "with the loader cursor, so --resume restarts at "
+                        "the exact batch")
+    parser.add_argument("--checkpoint-retain", type=int, default=3,
+                        help="checkpoint generations kept per file "
+                        "(older ones are fallback candidates when `latest` "
+                        "is torn or corrupt); 0 keeps no history")
+    parser.add_argument("--chaos", type=str, default=None,
+                        help="deterministic fault injection: a preset name "
+                        "(nan-step|io-flake) or a ChaosPlan JSON object; "
+                        "equivalent to setting $DPX_CHAOS")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser

@@ -15,6 +15,7 @@ from distributed_pytorch_example_tpu.models.gpt2 import GPT2 as JaxGPT2
 from distributed_pytorch_example_tpu_torch import interop
 from distributed_pytorch_example_tpu_torch.models import GPT2
 from distributed_pytorch_example_tpu_torch.ops import paged_attention
+from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
 torch.set_num_threads(2)
 
@@ -24,11 +25,18 @@ PAGED = dict(paged_num_blocks=32, paged_block_size=4, paged_max_blocks=8)
 TOL = 1e-4
 
 
+def _np(tree):
+    """A flax tree of tensor views (``interop.params_to_flax``) as numpy
+    copies."""
+    return to_numpy(to_host(tree))
+
+
 @pytest.fixture(scope="module")
 def shared():
     # the port's seeded init, carried to a flax tree (no JAX init to compile)
-    sd = GPT2(**KW, device="cpu", seed=0).state_dict()
-    params = interop.gpt2_state_dict_to_flax(sd)
+    model = GPT2(**KW, device="cpu", seed=0)
+    sd = model.state_dict()
+    params = _np(interop.params_to_flax(model))
     return params, sd
 
 

@@ -1,8 +1,10 @@
 """The port stands alone, and its entry points default to the card.
 
 An AST scan shows that no module of the port, and not ``chip_smoke.py``,
-imports JAX, flax or the JAX package (nor do the port's profiling
-script and the card's test file, which run where JAX is not installed).
+imports JAX, flax, msgpack or the JAX package (nor do the port's
+profiling script and the card's test file, which run where JAX is not
+installed): the card's machine has none of them, so the checkpoint codec
+is the port's own (``utils/msgpack.py``).
 Without a visible CUDA device, an entry point given no device raises
 instead of running on the CPU.
 """
@@ -22,7 +24,8 @@ from distributed_pytorch_example_tpu_torch.train import main as train_main
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "distributed_pytorch_example_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack",
+             "distributed_pytorch_example_tpu"}
 KW = dict(vocab_size=97, max_len=64, model_dim=32, num_layers=1,
           num_heads=2, mlp_dim=64)
 PAGED = dict(paged_num_blocks=8, paged_block_size=4, paged_max_blocks=4)
@@ -64,9 +67,11 @@ def test_scan_catches_a_jax_import(tmp_path):
     src.write_text(
         "import os\nfrom distributed_pytorch_example_tpu.serving import x\n"
         "from distributed_pytorch_example_tpu_torch import y\n"
+        "from distributed_pytorch_example_tpu_torch.utils import msgpack\n"
+        "import msgpack\nfrom flax import serialization\n"
     )
     assert _imported_roots(src) & FORBIDDEN == {
-        "distributed_pytorch_example_tpu"
+        "distributed_pytorch_example_tpu", "msgpack", "flax"
     }
 
 
@@ -103,8 +108,8 @@ def test_engine_refuses_out_of_slice_options():
 
 
 def test_train_cli_refuses_flags_outside_the_slice():
-    for argv in (["--save-every-steps", "5"], ["--mesh-tensor", "2"], ["--model", "resnet18"],
-                 ["--checkpoint-dir", "/tmp/ck"], ["--optimizer", "lamb"],
+    for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"], ["--model", "resnet18"],
+                 ["--checkpoint-format", "sharded"], ["--optimizer", "lamb"],
                  ["--model", "gpt2", "--dataset", "synthetic"]):
         with pytest.raises(SystemExit):
             train_main(argv + ["--device", "cpu"])

@@ -10,6 +10,7 @@ from distributed_pytorch_example_tpu.models.gpt2 import GPT2 as JaxGPT2
 from distributed_pytorch_example_tpu.models.mlp import SimpleNet as JaxSimpleNet
 from distributed_pytorch_example_tpu_torch import interop
 from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
+from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
 torch.set_num_threads(2)
 
@@ -23,14 +24,14 @@ def test_flax_torch_flax_roundtrip_is_bit_exact():
     )["params"]
     tree = jax.tree_util.tree_map(np.asarray, params)
     model = GPT2(**KW, device="cpu")
-    sd = interop.gpt2_flax_to_state_dict(tree)
-    # every parameter of the port is covered, with the port's shapes
-    model.load_state_dict(sd, strict=True)
+    # every parameter of the port is covered, with the port's shapes:
+    # a missing, extra or misshapen leaf raises
+    interop.params_from_flax(model, tree)
     assert torch.equal(
         model.decoder.layers[1].attn.q.weight,
         torch.from_numpy(np.array(tree["decoder"]["layer_1"]["attn"]["q"]["kernel"].T)),
     )
-    back = interop.gpt2_state_dict_to_flax(model.state_dict())
+    back = to_numpy(to_host(interop.params_to_flax(model)))
     flat_a = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_a) == len(flat_b)
@@ -60,9 +61,8 @@ def test_simplenet_roundtrip_is_bit_exact():
                                  jnp.zeros((1, 784)))["params"]
     tree = jax.tree_util.tree_map(np.asarray, params)
     model = SimpleNet(device="cpu")
-    model.load_state_dict(interop.simplenet_flax_to_state_dict(tree),
-                          strict=True)
-    back = interop.simplenet_state_dict_to_flax(model.state_dict())
+    interop.params_from_flax(model, tree)
+    back = to_numpy(to_host(interop.params_to_flax(model)))
     assert back.keys() == tree.keys() == {"Dense_0", "Dense_1", "Dense_2"}
     for name in tree:
         for leaf in ("kernel", "bias"):

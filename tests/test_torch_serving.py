@@ -39,6 +39,7 @@ from distributed_pytorch_example_tpu_torch.serving.sampling import (
     truncate_logits,
 )
 from distributed_pytorch_example_tpu_torch.telemetry.trace import TraceWriter
+from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
 torch.set_num_threads(2)
 
@@ -49,11 +50,18 @@ GPT2_KW = dict(vocab_size=97, max_len=64, model_dim=32, num_layers=2,
 PAGED = dict(paged_num_blocks=12, paged_block_size=4, paged_max_blocks=8)
 
 
+def _np(tree):
+    """A flax tree of tensor views (``interop.params_to_flax``) as numpy
+    copies."""
+    return to_numpy(to_host(tree))
+
+
 @pytest.fixture(scope="module")
 def models():
     # the port's seeded init, carried to a flax tree (no JAX init to compile)
-    sd = GPT2(**GPT2_KW, device="cpu", seed=0).state_dict()
-    params = interop.gpt2_state_dict_to_flax(sd)
+    seeded = GPT2(**GPT2_KW, device="cpu", seed=0)
+    sd = seeded.state_dict()
+    params = _np(interop.params_to_flax(seeded))
     model = GPT2(**GPT2_KW, decode=True, **PAGED, device="cpu")
     model.load_state_dict(sd)
     return JaxGPT2(**GPT2_KW, decode=True, **PAGED), params, model

@@ -56,6 +56,9 @@ from distributed_pytorch_example_tpu_torch.data import (
     SyntheticTokenDataset,
 )
 from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
+from distributed_pytorch_example_tpu_torch.train.checkpoint import (
+    SHARDED_MAGIC,
+)
 from distributed_pytorch_example_tpu_torch.train import (
     CausalLMTask,
     ClassificationTask,
@@ -64,6 +67,7 @@ from distributed_pytorch_example_tpu_torch.train import (
     build_train_step,
     make_optimizer,
 )
+from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
 torch.set_num_threads(2)
 
@@ -76,6 +80,12 @@ DTYPES = {"float32": (torch.float32, jnp.float32),
 TOL = {"float32": dict(loss=1e-5, grad=2e-5, grad_rel=None, param=1e-5),
        "bfloat16": dict(loss=2e-2, grad=None, grad_rel=3e-2, param=None)}
 GRAD_FLOOR = 1e-3  # the leaf scale below which bf16 grads are held absolutely
+
+
+def _np(tree):
+    """A flax tree of tensor views (``interop.params_to_flax``) as numpy
+    copies."""
+    return to_numpy(to_host(tree))
 
 
 def _jax_tree(tree):
@@ -120,7 +130,7 @@ def _gpt2_pair(mode, dtype):
     tdt, jdt = DTYPES[dtype]
     model = GPT2(**KW, dtype=tdt, logits_mode=MODES[mode], device="cpu",
                  seed=0)
-    params = interop.gpt2_state_dict_to_flax(model.state_dict())
+    params = _np(interop.params_to_flax(model))
     jmodel = JaxGPT2(**KW, dtype=jdt, logits_mode=MODES[mode])
     return model, jmodel, params
 
@@ -158,13 +168,13 @@ def test_gpt2_train_step_matches_jax(mode, dtype):
     assert abs(float(metrics["loss"]) - float(jmetrics["loss"])) <= tol["loss"]
     assert abs(float(metrics["accuracy"])
                - float(jmetrics["accuracy"])) <= 100.0 / (BATCH * (SEQ - 1))
-    grads = interop.gpt2_state_dict_to_flax(interop.grads_of(model))
+    grads = _np(interop.params_to_flax(model, interop.grads_of(model)))
     if tol["grad_rel"] is not None:
         _assert_grads_close_rel(grads, jgrads, tol["grad_rel"])
     else:
         _assert_trees_close(grads, jgrads, tol["grad"], "grad")
     if tol["param"] is not None:
-        after = interop.gpt2_state_dict_to_flax(model.state_dict())
+        after = _np(interop.params_to_flax(model))
         _assert_trees_close(after, new_state.params, tol["param"], "param",
                             grads=jgrads)
 
@@ -221,7 +231,7 @@ def test_gpt2_trainer_fit_matches_jax_step_by_step():
 
 def _simplenet_pair(dropout_rate):
     model = SimpleNet(dropout_rate=dropout_rate, device="cpu", seed=0)
-    params = interop.simplenet_state_dict_to_flax(model.state_dict())
+    params = _np(interop.params_to_flax(model))
     return model, JaxSimpleNet(dropout_rate=dropout_rate), params
 
 
@@ -359,7 +369,7 @@ def test_skip_predicate_counts_nonfinite_elements_as_jax_does(value, bad):
         state, {"x": torch.from_numpy(x), "y": torch.from_numpy(y).long()})
     assert float(jmetrics["bad_step"]) == bad
     assert float(metrics["bad_step"]) == bad
-    got = interop.simplenet_state_dict_to_flax(model.state_dict())
+    got = _np(interop.params_to_flax(model))
     _assert_trees_close(got, jax.tree_util.tree_map(np.asarray,
                                                     jstate.params),
                         TOL["float32"]["param"], "param")
@@ -369,11 +379,19 @@ def test_skip_predicate_counts_nonfinite_elements_as_jax_does(value, bad):
         assert float(got["Dense_2"]["bias"][0]) < -1e18  # the step applied
 
 
-def test_refused_options_raise():
+def test_refused_options_raise(tmp_path):
     model = SimpleNet(device="cpu")
     opt = make_optimizer(model.parameters())
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        Trainer(model, ClassificationTask(), opt, checkpoint_dir="/tmp/x")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        Trainer(model, ClassificationTask(), opt, checkpoint_dir=str(tmp_path),
+                checkpoint_format="sharded")
+    # a JAX sharded-format pointer file is refused on load, not misread
+    pointer = tmp_path / "latest_model.ckpt"
+    pointer.write_bytes(SHARDED_MAGIC + b"00000001\n")
+    trainer = Trainer(model, ClassificationTask(), opt,
+                      checkpoint_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        trainer.load(str(pointer))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(ClassificationTask(), sentinels=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -42,6 +42,7 @@ from distributed_pytorch_example_tpu_torch.parallel import (
     wire,
 )
 from distributed_pytorch_example_tpu_torch.runtime import distributed
+from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
 torch.set_num_threads(2)
 
@@ -131,13 +132,19 @@ def test_wireconfig_validation(kw, error):
 # -- the plan and the report, against JAX's over the same tree --------------
 
 
+def _np(tree):
+    """A flax tree of tensor views (``interop.params_to_flax``) as numpy
+    copies."""
+    return to_numpy(to_host(tree))
+
+
 def _trees(world, min_size):
     model = GPT2(**KW, device="cpu", seed=0)
     leaves = interop.flax_leaves(model)
     named = dict(model.named_parameters())
     shapes = {leaf.key: tuple(leaf.to_jax(named[leaf.name]).shape)
               for leaf in leaves}
-    params = interop.gpt2_state_dict_to_flax(model.state_dict())
+    params = _np(interop.params_to_flax(model))
     mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
     jpart = jax_data_parallel(mesh, dp_shard_opt_state=True,
                               opt_shard_min_size=min_size)

@@ -26,13 +26,19 @@ Tolerances:
   mean, with ``amax`` the largest local gradient of either rank.
 - A bf16 parameter gather on top: after one step, exactly the float32
   gather's parameters rounded to bf16.
+
+The pair also runs the checkpoint cases of ``tests/test_torch_resume.py``
+(:func:`_checkpoint_cases`): a gathered ZeRO-1 save, and resumes that flip
+the mode between replicated and ZeRO-1.
 """
 
 import functools
 import multiprocessing
 import os
 import pickle
+import shutil
 import socket
+import tempfile
 
 import filelock
 import jax
@@ -68,6 +74,7 @@ from distributed_pytorch_example_tpu_torch.train import (
     build_train_step,
     make_optimizer,
 )
+from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
 torch.set_num_threads(2)
 
@@ -198,6 +205,74 @@ def _nan_on_rank_1(rank, world):
                              for k, v in before.items())}
 
 
+CKPT_EPOCHS = 3
+
+
+def _ckpt_trainer(zero1, checkpoint_dir, world):
+    """Adam on the seed-0 GPT-2 through Trainer.fit, ZeRO-1 or replicated
+    across the processes, recording each step's loss."""
+    model = GPT2(**KW, logits_mode="hidden", device="cpu", seed=0)
+    part = (data_parallel(world, dp_shard_opt_state=True,
+                          opt_shard_min_size=MIN_SHARD) if zero1 else None)
+    trainer = Trainer(model, CausalLMTask(),
+                      make_optimizer(model.parameters(), "adam", LR["adam"]),
+                      partitioner=part, checkpoint_dir=checkpoint_dir,
+                      log_every=1)
+    losses, step_fn = [], trainer.train_step
+
+    def step(state, batch):
+        metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        return metrics
+
+    trainer.train_step = step
+    return trainer, losses
+
+
+def ckpt_loader(rank, world):
+    """8 sequences, global batch 4: 2 steps an epoch, sharded by rank."""
+    return DeviceLoader(SyntheticTokenDataset(8, seq_len=SEQ,
+                                              vocab_size=KW["vocab_size"],
+                                              seed=0),
+                        GLOBAL_BATCH, device="cpu", num_shards=world,
+                        shard_id=rank, prefetch=0)
+
+
+def _checkpoint_cases(rank, world, port):
+    """A ZeRO-1 epoch saved gathered (rank 0 returns the file's bytes); an
+    uninterrupted replicated run of CKPT_EPOCHS epochs; and the same run
+    resumed twice with the mode flipped: replicated epoch 0, ZeRO-1 epoch
+    1, replicated epoch 2."""
+    root = os.path.join(tempfile.gettempdir(), f"test_torch_zero1_{port}")
+    latest = "latest_model.ckpt"
+    zero1, _ = _ckpt_trainer(True, os.path.join(root, "zero1"), world)
+    zero1.fit(ckpt_loader(rank, world), None, epochs=1)
+    blob = None
+    if rank == 0:
+        with open(os.path.join(root, "zero1", latest), "rb") as f:
+            blob = f.read()
+    ref, ref_losses = _ckpt_trainer(False, None, world)
+    ref.fit(ckpt_loader(rank, world), None, epochs=CKPT_EPOCHS)
+    first, _ = _ckpt_trainer(False, os.path.join(root, "rep"), world)
+    first.fit(ckpt_loader(rank, world), None, epochs=1)
+    flip, flip_losses = _ckpt_trainer(True, os.path.join(root, "flip"),
+                                      world)
+    flip.fit(ckpt_loader(rank, world), None, epochs=2,
+             resume=os.path.join(root, "rep", latest))
+    back, back_losses = _ckpt_trainer(False, os.path.join(root, "back"),
+                                      world)
+    back.fit(ckpt_loader(rank, world), None, epochs=CKPT_EPOCHS,
+             resume=os.path.join(root, "flip", latest))
+    distributed.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"zero1_file": blob, "replicated_epoch0": _params(first.model),
+            "ref_losses": ref_losses, "ref_params": _params(ref.model),
+            "flip_losses": flip_losses + back_losses,
+            "flip_steps": [flip.state.step, back.state.step],
+            "flip_params": _params(back.model)}
+
+
 def _worker(rank, port, results):
     torch.set_num_threads(1)
     config = distributed.DistributedConfig(WORLD, rank, f"localhost:{port}")
@@ -206,6 +281,7 @@ def _worker(rank, port, results):
         out = {name: _run_case(name, rank, WORLD) for name in CASES}
         out["fit"] = _fit(rank, WORLD)
         out["nan-on-rank-1"] = _nan_on_rank_1(rank, WORLD)
+        out["checkpoint"] = _checkpoint_cases(rank, WORLD, port)
         results.put((rank, out))
     finally:
         distributed.shutdown()
@@ -274,6 +350,12 @@ def _replicated(opt, **opt_kw):
     return params, grads
 
 
+def _np(tree):
+    """A flax tree of tensor views (``interop.params_to_flax``) as numpy
+    copies."""
+    return to_numpy(to_host(tree))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_replicated(opt, **opt_kw):
     """The JAX package's replicated step on the same weights and global
@@ -282,7 +364,7 @@ def _jax_replicated(opt, **opt_kw):
     jmodel = JaxGPT2(**KW, logits_mode="hidden")
     joptim = jax_opt.make_optimizer(opt, LR[opt], **opt_kw)
     jparams = jax.tree_util.tree_map(
-        jnp.asarray, interop.gpt2_state_dict_to_flax(model.state_dict()))
+        jnp.asarray, _np(interop.params_to_flax(model)))
     state = JaxState(step=jnp.zeros((), jnp.int32), params=jparams,
                      opt_state=joptim.init(jparams), model_state={},
                      rng=jax.random.key(0))
@@ -291,9 +373,10 @@ def _jax_replicated(opt, **opt_kw):
     params = []
     for tokens in _batches():
         state, _ = step(state, {"tokens": jnp.asarray(tokens)})
-        flat = interop.gpt2_flax_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, state.params))
-        params.append({k: v.numpy().copy() for k, v in flat.items()})
+        interop.params_from_flax(
+            model, jax.tree_util.tree_map(np.asarray, state.params))
+        params.append({k: v.detach().numpy().copy()
+                       for k, v in model.named_parameters()})
     return params
 
 
