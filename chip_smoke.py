@@ -21,7 +21,11 @@ last line:
    (K1), then the all-gather and reduce-scatter pushes (K3a, K3b) with 2,
    4 and 8 in-process ranks, each on its own CUDA stream, at one 4 MiB
    gradient bucket and at the whole GPT-2 124M gradient (K3b also bit for
-   bit against the plain sum in the TPU ring's order);
+   bit against the plain sum in the TPU ring's order). K1 is also held and
+   timed at BERT-base's shape (16 x 12 x 512 x 64, bf16, non-causal) with
+   a key mask of padded tails and an all-pad row, and unmasked, beside
+   SDPA with the same boolean mask (its backend named) and unmasked: the
+   ``bert`` field of the K1 entries;
 4. serve  — GPT-2 124M at full width (random weights from a seed) through
    ``InferenceEngine.run``: 16 requests greedy, then at temperature 1.0 with
    top-k 50; checks every request completes, the paged-decode kernel ran
@@ -65,9 +69,23 @@ last line:
    its first "Batch" line: it must exit 143 leaving ``latest`` with
    ``batch_in_epoch``, and its ``--resume`` must log "Resuming epoch 0 at
    batch k" and "Training completed".
+10. bert — BERT-base masked LM at full width and depth (vocab 30522,
+   512 tokens, 12 layers of 768), bf16, fused loss with ``mlm_bias``,
+   Adam, batch 16 x 512 synthetic tokens through ``Trainer.fit``: 10 steps
+   and one validation batch. Checks every loss is finite, K1's forward ran
+   12 x (steps + validation batches) times and its backward 12 x steps,
+   the same run with plain attention (same seed, so the same masks)
+   follows the same losses at phase 6's tolerance, and the first step's
+   gradients are held to a float32 plain-attention step leaf by leaf
+   (phase 6's GRAD_TOL, or twice plain bf16 attention's own gap where
+   BERT's rank collapse makes that larger: ``BERT_GRAD_SLACK``); with ``pad_token_id=0`` on batches with padded tails every
+   K1 launch carries the key mask, the same number of them, and the losses
+   follow plain attention's; then the CLI with ``--optimizer lamb`` (4
+   steps) must log "Training completed". Prints step ms, tokens/s and peak
+   memory beside the card's name and power limit.
 
-Each main path (serve, train, zero1, checkpoint) runs with every launch
-count set to 0 just before it and read just after.
+Each main path (serve, train, zero1, checkpoint, bert) runs with every
+launch count set to 0 just before it and read just after.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -98,6 +116,14 @@ _BF16_PEAK = 989e12  # dense tensor-core rate, H100 SXM
 
 SLOTS, HEADS, HEAD_DIM, LAYERS = 8, 12, 64, 12
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 16, 1024
+# BERT-base MLM (phase 10; K1's masked, non-causal case in phase 3): the
+# JAX package's defaults and its CLI's vocabulary and [MASK] id
+BERT_SEQ, BERT_VOCAB, BERT_MASK_ID = 512, 30522, 103
+# the key mask of phase 3's BERT case, one length per batch row: padded
+# tails of every kind against the kernels' 128-key tiles (a full row, one
+# key short, on and around tile edges, one key) and an all-pad row last
+BERT_LENS = (512, 511, 509, 500, 448, 385, 384, 383, 257, 256, 200, 129,
+             128, 64, 1, 0)
 BLOCK_SIZE, MAX_BLOCKS, NUM_BLOCKS = 16, 64, 513
 # row lengths straddling block edges: first/last position of a block,
 # one-block rows, a full table
@@ -400,17 +426,21 @@ FLASH_TOL = {
 
 
 def flash_case(torch, *, batch, heads, kv_heads, seq, head_dim, dtype,
-               masked, seed, device="cuda"):
+               masked, seed, device="cuda", lens=None):
     """q/k/v/do drawn on the CPU from ``seed``; with ``masked``, a (B, S)
     float32 key mask where row 0 loses its last quarter of keys and the
-    last row has none (a dead row)."""
+    last row has none (a dead row); with ``lens``, row b keeps its first
+    ``lens[b]`` keys."""
     gen = torch.Generator().manual_seed(seed)
     shape_q = (batch, seq, heads, head_dim)
     shape_kv = (batch, seq, kv_heads, head_dim)
     q, do = (torch.randn(shape_q, generator=gen) for _ in range(2))
     k, v = (torch.randn(shape_kv, generator=gen) for _ in range(2))
     mask = None
-    if masked:
+    if lens is not None:
+        mask = (torch.arange(seq)[None, :]
+                < torch.tensor(lens)[:, None]).float().to(device)
+    elif masked:
         mask = torch.ones(batch, seq)
         mask[0, seq - seq // 4:] = 0
         mask[-1] = 0
@@ -483,8 +513,13 @@ def check_flash(torch, bandwidth):
                            head_dim=256, dtype=bf16, masked=True), False),
         ("fp32-h256", dict(batch=1, heads=2, kv_heads=2, seq=256,
                            head_dim=256, dtype=f32, masked=False), True),
+        # BERT-base's attention (phase 10's shape): non-causal, every tile
+        # live, padded tails of every length and an all-pad row
+        ("bf16-bert-kvmask", dict(batch=B, heads=N, kv_heads=N, seq=BERT_SEQ,
+                                  head_dim=H, dtype=bf16, masked=True,
+                                  lens=BERT_LENS), False),
     ]
-    errors = {}
+    errors, cases_out = {}, {}
     for i, (name, kw, causal) in enumerate(cases):
         q, k, v, do, mask = flash_case(torch, seed=100 + i, **kw)
         args = dict(causal=causal, kv_mask=mask,
@@ -504,13 +539,12 @@ def check_flash(torch, bandwidth):
                   and bool((grads[0][-1] == 0).all()),
                   f"K1 {name}: the dead row is not 0 / NEG_INF / 0")
         errors[name] = errs
-        if name == "bf16-causal-main":
-            main = (q, k, v, do, o, lse)
-            max_abs = {
+        if name in ("bf16-causal-main", "bf16-bert-kvmask"):
+            cases_out[name] = ((q, k, v, do, mask, o, lse), {
                 "fwd": (o.float() - ro.float()).abs().max().item(),
                 "bwd": max((g.float() - r.float()).abs().max().item()
                            for g, r in zip(grads, rgrads)),
-            }
+            })
         say("kernel", f"K1 {name}: " + ", ".join(
             f"{key} {err:.3e} (tol {tols[key]:.0e})"
             for key, err in errs.items()))
@@ -519,7 +553,7 @@ def check_flash(torch, bandwidth):
                   "rounds the outputs, float32 differs in summation order")
 
     # timing at the training path's shape, on the main case's inputs
-    q, k, v, do, o, lse = main
+    (q, k, v, do, _, o, lse), max_abs = cases_out["bf16-causal-main"]
     args = dict(causal=True, kv_mask=None, softmax_scale=H ** -0.5)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
@@ -539,14 +573,18 @@ def check_flash(torch, bandwidth):
     ms = {}
     # plain, kernel, kernel, plain: keep the comparison inside one call
     for label, fn, iters in (
-        ("fwd_plain", lambda: flash_attention_fwd_reference(q, k, v, **args), 5),
+        ("fwd_plain", lambda: flash_attention_fwd_reference(q, k, v, **args),
+         5),
         ("fwd", lambda: flash_attention_fwd(q, k, v, **args), 20),
         ("fwd2", lambda: flash_attention_fwd(q, k, v, **args), 20),
-        ("fwd_plain2", lambda: flash_attention_fwd_reference(q, k, v, **args), 5),
+        ("fwd_plain2", lambda: flash_attention_fwd_reference(q, k, v,
+                                                             **args), 5),
         ("bwd_plain", lambda: flash_attention_bwd_reference(
             q, k, v, o, lse, do, **args), 5),
-        ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args), 20),
-        ("bwd2", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args), 20),
+        ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args),
+         20),
+        ("bwd2", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args),
+         20),
         ("bwd_plain2", lambda: flash_attention_bwd_reference(
             q, k, v, o, lse, do, **args), 5),
         ("sdpa_fwd", lambda: sdpa(qt, kt, vt, is_causal=True), 20),
@@ -595,7 +633,116 @@ def check_flash(torch, bandwidth):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
         })
+    bert = time_bert_flash(torch, bandwidth, *cases_out["bf16-bert-kvmask"])
+    for entry, kind in zip(entries, ("fwd", "bwd")):
+        entry["bert"] = bert[kind]
     return entries
+
+
+def time_bert_flash(torch, bandwidth, inputs, max_abs):
+    """K1 at BERT-base's shape (B=16, N=12, S=512, H=64, bf16, non-causal)
+    on phase 3's case with ``BERT_LENS`` as key mask, and once unmasked;
+    its plain version; SDPA with the same boolean key mask and unmasked.
+    Returns the ``bert`` fields of the K1 entries, the bounds counted on
+    this mask's live keys (a dead row needs no products)."""
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    q, k, v, do, mask, o, lse = inputs
+    B, S, N, H = q.shape
+    args = dict(causal=False, kv_mask=mask, softmax_scale=H ** -0.5)
+    bare = dict(args, kv_mask=None)
+    o_bare, lse_bare = flash_attention_fwd(q, k, v, **bare)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    keep = (mask > 0)[:, None, None, :]  # SDPA's boolean mask: True = attend
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    outs = {"masked": sdpa(qt, kt, vt, attn_mask=keep),
+            "unmasked": sdpa(qt, kt, vt)}
+
+    def sdpa_bwd(which):
+        return lambda: torch.autograd.grad(outs[which], (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+    backends = {}
+    for which, fwd in (("masked", lambda: sdpa(qt, kt, vt, attn_mask=keep)),
+                       ("unmasked", lambda: sdpa(qt, kt, vt))):
+        for kind, fn in (("fwd", fwd), ("bwd", sdpa_bwd(which))):
+            backends[kind, which] = sdpa_backend(torch, fn)
+            say("kernel", f"SDPA {kind} {which} backend at the BERT shape: "
+                          + backends[kind, which])
+    ms = {}
+    for label, fn, iters in (
+        ("fwd_plain", lambda: flash_attention_fwd_reference(q, k, v,
+                                                            **args), 5),
+        ("fwd", lambda: flash_attention_fwd(q, k, v, **args), 20),
+        ("fwd2", lambda: flash_attention_fwd(q, k, v, **args), 20),
+        ("fwd_plain2", lambda: flash_attention_fwd_reference(q, k, v,
+                                                             **args), 5),
+        ("fwd_unmasked", lambda: flash_attention_fwd(q, k, v, **bare), 20),
+        ("bwd_plain", lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, **args), 5),
+        ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args),
+         20),
+        ("bwd2", lambda: flash_attention_bwd(q, k, v, o, lse, do, **args),
+         20),
+        ("bwd_plain2", lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, **args), 5),
+        ("bwd_unmasked", lambda: flash_attention_bwd(
+            q, k, v, o_bare, lse_bare, do, **bare), 20),
+        ("sdpa_fwd_masked", lambda: sdpa(qt, kt, vt, attn_mask=keep), 20),
+        ("sdpa_fwd_unmasked", lambda: sdpa(qt, kt, vt), 20),
+        ("sdpa_bwd_masked", sdpa_bwd("masked"), 20),
+        ("sdpa_bwd_unmasked", sdpa_bwd("unmasked"), 20),
+    ):
+        ms[label] = time_cold(torch, fn, iters=iters)
+    elem = B * S * N * H * 2          # one bf16 (B, S, N, H) tensor
+    row = B * N * S * 4               # one float32 (B, N, S) tensor
+    live = N * H * S * int((mask > 0).sum().item())  # q.k pairs x H
+    full = N * H * S * B * S
+    out = {}
+    # fwd: reads q, k, v, the mask; writes o, lse; q.k^T and p.v.
+    # bwd: reads q, k, v, o, do, lse, the mask; writes dq, dk, dv; five
+    # products (the q.k^T recompute, dO.v^T, p^T.dO, ds^T.q, ds.k)
+    for kind, nbytes, products in (("fwd", 4 * elem + row, 2),
+                                   ("bwd", 8 * elem + row, 5)):
+        nbytes += B * S * 4
+        bytes_ms = nbytes / bandwidth * 1e3
+        ops_ms = 2 * products * live / _BF16_PEAK * 1e3
+        full_ms = max(bytes_ms, 2 * products * full / _BF16_PEAK * 1e3)
+        out[kind] = {
+            "shape": f"B={B} N={N} S={S} H={H} bf16 non-causal, key mask "
+                     f"lens {list(BERT_LENS)}",
+            "launches": None,  # filled from phase 10's run
+            "max_abs_err": max_abs[kind],
+            "ms": min(ms[kind], ms[kind + "2"]),
+            "plain_ms": min(ms[kind + "_plain"], ms[kind + "_plain2"]),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": ms[f"sdpa_{kind}_masked"],
+            "library_backend": backends[kind, "masked"],
+            "unmasked_ms": ms[kind + "_unmasked"],
+            "unmasked_bound_ms": full_ms,
+            "library_unmasked_ms": ms[f"sdpa_{kind}_unmasked"],
+            "library_unmasked_backend": backends[kind, "unmasked"],
+        }
+        say("kernel", f"flash_attention_{kind} at the BERT shape "
+                      f"(B={B} N={N} S={S} H={H} bf16 non-causal, key mask "
+                      f"{int((mask > 0).sum().item())} of {B * S} keys): "
+                      f"kernel {ms[kind]:.4f}/{ms[kind + '2']:.4f} ms, plain "
+                      f"{ms[kind + '_plain']:.4f}/{ms[kind + '_plain2']:.4f} "
+                      f"ms, SDPA masked {ms[f'sdpa_{kind}_masked']:.4f} ms, "
+                      f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, "
+                      f"{2 * products * live} flops); unmasked: kernel "
+                      f"{ms[kind + '_unmasked']:.4f} ms, SDPA "
+                      f"{ms[f'sdpa_{kind}_unmasked']:.4f} ms, bound "
+                      f"{full_ms:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -993,26 +1140,17 @@ def reset_counts():
         kernel.launches = 0
 
 
-def train_run(torch, use_flash):
-    """GPT-2 124M through Trainer.fit; returns (losses, step ms, history,
-    peak bytes, the first step's gradients by name on the CPU)."""
-    from distributed_pytorch_example_tpu_torch.data import (
-        DeviceLoader,
-        SyntheticTokenDataset,
-    )
-    from distributed_pytorch_example_tpu_torch.models import GPT2
+def fit_run(torch, model, task, train_ds, val_ds, batch):
+    """One epoch of ``Trainer.fit`` on the card, Adam at lr 1e-3; returns
+    (losses, step ms, history, peak bytes, the first step's gradients by
+    name on the CPU)."""
+    from distributed_pytorch_example_tpu_torch.data import DeviceLoader
     from distributed_pytorch_example_tpu_torch.train import (
-        CausalLMTask,
         Trainer,
         make_optimizer,
     )
 
-    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
-                 use_flash=use_flash, device="cuda", seed=0)
-    train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
-                                     seq_len=TRAIN_SEQ, seed=0)
-    val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
-    trainer = Trainer(model, CausalLMTask(),
+    trainer = Trainer(model, task,
                       make_optimizer(model.parameters(), "adam", 1e-3),
                       log_every=5)
     step_fn, losses, events, first_grads = trainer.train_step, [], [], {}
@@ -1036,8 +1174,8 @@ def train_run(torch, use_flash):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     history = trainer.fit(
-        DeviceLoader(train_ds, TRAIN_BATCH, device="cuda", seed=0),
-        DeviceLoader(val_ds, TRAIN_BATCH, device="cuda", shuffle=False),
+        DeviceLoader(train_ds, batch, device="cuda", seed=0),
+        DeviceLoader(val_ds, batch, device="cuda", shuffle=False),
         epochs=1,
     )
     torch.cuda.synchronize()
@@ -1046,6 +1184,36 @@ def train_run(torch, use_flash):
     del trainer, model
     torch.cuda.empty_cache()
     return [float(x) for x in losses], step_ms, history, peak, first_grads
+
+
+def train_run(torch, use_flash):
+    """GPT-2 124M through Trainer.fit (see :func:`fit_run`)."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.train import CausalLMTask
+
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                 use_flash=use_flash, device="cuda", seed=0)
+    train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, seed=0)
+    val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
+    return fit_run(torch, model, CausalLMTask(), train_ds, val_ds,
+                   TRAIN_BATCH)
+
+
+def gradient_gaps(grads, plain_grads):
+    """||g - g_plain|| / ||g_plain|| per leaf, the k-projection biases
+    left out (zero in exact arithmetic: a softmax ignores a shift shared
+    by a whole row of logits, so both sides hold rounding noise)."""
+    check(grads.keys() == plain_grads.keys(),
+          "flash and plain runs have different gradient leaves")
+    return {
+        name: ((g - plain_grads[name]).norm()
+               / plain_grads[name].norm().clamp_min(1e-30)).item()
+        for name, g in grads.items() if not name.endswith("attn.k.bias")
+    }
 
 
 def train(torch):
@@ -1086,13 +1254,7 @@ def train(torch):
     check(worst <= LOSS_TOL,
           f"train: flash vs plain attention losses differ by {worst:.3e} > "
           f"{LOSS_TOL} ({losses} vs {plain})")
-    check(grads.keys() == plain_grads.keys(),
-          "train: flash and plain runs have different gradient leaves")
-    gaps = {
-        name: ((g - plain_grads[name]).norm()
-               / plain_grads[name].norm().clamp_min(1e-30)).item()
-        for name, g in grads.items() if not name.endswith("attn.k.bias")
-    }
+    gaps = gradient_gaps(grads, plain_grads)
     worst_leaf = max(gaps, key=gaps.get)
     check(all(math.isfinite(x) and x <= GRAD_TOL for x in gaps.values()),
           f"train: first-step gradient of {worst_leaf} differs from plain "
@@ -1697,6 +1859,199 @@ def checkpoint_cli(ckdir):
                       f" s, logged \"{want}/...\" and \"Training completed\"")
 
 
+# ---------------------------------------------------------------------------
+# 10. bert: BERT-base masked-LM training at full width and depth
+# ---------------------------------------------------------------------------
+
+BERT_PAD = 0
+# BERT-base at initialisation collapses: by layer 11 the hidden states of
+# all 512 positions point the same way (mean cosine 0.996), so the upper
+# layers' q/k kernel gradients are 1000x smaller than their v/o ones and
+# any bf16 path holds them only to a few percent: plain bf16 attention's
+# first step is 4.7e-2 of their norm off a float32 step (H100, this
+# phase). There phase 6's per-leaf GRAD_TOL between two bf16 runs measures
+# the leaf's conditioning; each bf16 run is held instead to the float32
+# step, the flash run within GRAD_TOL or within this factor of plain bf16
+# attention's own gap (a kernel whose delta is off puts those leaves at
+# O(1): 1.9 with delta from the bf16 O alone).
+BERT_GRAD_SLACK = 2.0
+
+
+def bert_datasets(pad):
+    """10 x 16 synthetic training rows of 512 tokens over BERT's vocabulary
+    and one validation batch. With ``pad``, every row but each seventh
+    gets a padded tail (its length drawn from seed 2, at least 64 tokens
+    kept), one validation row is all pad, and the pad id appears nowhere
+    else."""
+    import numpy as np
+
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticTokenDataset,
+    )
+
+    sets = (SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH, seq_len=BERT_SEQ,
+                                  vocab_size=BERT_VOCAB, seed=0),
+            SyntheticTokenDataset(TRAIN_BATCH, seq_len=BERT_SEQ,
+                                  vocab_size=BERT_VOCAB, seed=1))
+    if pad is not None:
+        rng = np.random.default_rng(2)
+        for ds in sets:
+            tokens = ds.arrays["tokens"]
+            tokens[tokens == pad] = pad + 1
+            lens = rng.integers(64, BERT_SEQ + 1, len(tokens))
+            lens[::7] = BERT_SEQ
+            tokens[np.arange(BERT_SEQ)[None, :] >= lens[:, None]] = pad
+        sets[1].arrays["tokens"][-1] = pad
+    return sets
+
+
+def bert_run(torch, use_flash, pad=None, dtype=None):
+    """BERT-base MLM, bf16 unless ``dtype`` says otherwise, fused loss,
+    through Trainer.fit (see :func:`fit_run`); the same seed draws the same
+    masks in every run."""
+    from distributed_pytorch_example_tpu_torch.models import BertBase
+    from distributed_pytorch_example_tpu_torch.train.tasks import MLMTask
+
+    model = BertBase(dtype=dtype or torch.bfloat16, logits_mode="hidden",
+                     use_flash=use_flash, pad_token_id=pad, device="cuda",
+                     seed=0)
+    task = MLMTask(BERT_VOCAB, BERT_MASK_ID, pad_token_id=pad)
+    return fit_run(torch, model, task, *bert_datasets(pad), TRAIN_BATCH)
+
+
+def bert_masked_run(torch):
+    """:func:`bert_run` with the pad id on padded batches, flash and
+    plain attention; counts the K1 launches whose C call received the key
+    mask (a wrapper around the library's entry points). Returns (launches
+    fwd, bwd, masked fwd, masked bwd, losses, plain losses)."""
+    import importlib
+
+    # the module (the package exports a function of the same name)
+    fa = importlib.import_module(
+        "distributed_pytorch_example_tpu_torch.ops.flash_attention")
+    real = fa._kernel_fn
+    mask_arg = {"dpx_flash_fwd": 5, "dpx_flash_bwd": 8}  # the mask pointer
+    masked = dict.fromkeys(mask_arg, 0)
+
+    def spy(name):
+        fn = real(name)
+        if name not in mask_arg:
+            return fn
+
+        def call(*args):
+            masked[name] += args[mask_arg[name]] is not None
+            return fn(*args)
+        return call
+
+    reset_counts()
+    fa._kernel_fn = spy
+    try:
+        losses = bert_run(torch, None, pad=BERT_PAD)[0]
+    finally:
+        fa._kernel_fn = real
+    launched = (fa.flash_attention_fwd.launches,
+                fa.flash_attention_bwd.launches)
+    plain = bert_run(torch, False, pad=BERT_PAD)[0]
+    return (*launched, masked["dpx_flash_fwd"], masked["dpx_flash_bwd"],
+            losses, plain)
+
+
+def bert(torch, smi_line):
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    reset_counts()
+    losses, step_ms, history, peak, grads = bert_run(torch, None)
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"bert: losses {losses}")
+    check(math.isfinite(history[0]["val_loss"]),
+          f"bert: validation loss {history[0]['val_loss']}")
+    check(fwd == LAYERS * (TRAIN_STEPS + 1) and bwd == LAYERS * TRAIN_STEPS,
+          f"bert: flash launched fwd {fwd} bwd {bwd} times, want "
+          f"{LAYERS} x ({TRAIN_STEPS} steps + 1 validation batch) and "
+          f"{LAYERS} x {TRAIN_STEPS}")
+    median = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    tokens = TRAIN_BATCH * BERT_SEQ
+    say("bert", f"{smi_line}: BERT-base MLM bf16 fused loss, Adam, batch "
+                f"{TRAIN_BATCH} x {BERT_SEQ}: {TRAIN_STEPS} steps, losses "
+                f"{[round(x, 4) for x in losses]}, val loss "
+                f"{history[0]['val_loss']:.4f}; step ms {step_ms} (median of "
+                f"steps 3+ {median:.2f} ms = {tokens / median * 1e3:.0f} "
+                f"tokens/s); peak memory {peak / 2**30:.2f} GiB; K1 launches "
+                f"fwd {fwd} bwd {bwd}")
+    plain, plain_ms, _, plain_peak, plain_grads = bert_run(torch, False)
+    worst = max(abs(a - b) for a, b in zip(losses, plain))
+    check(worst <= LOSS_TOL,
+          f"bert: flash vs plain attention losses differ by {worst:.3e} > "
+          f"{LOSS_TOL} ({losses} vs {plain})")
+    # first-step gradients against a float32 plain-attention step on the
+    # same batch and masks: the flash run's gap within GRAD_TOL, or within
+    # BERT_GRAD_SLACK x the bf16 plain run's own gap where that is larger
+    # (the upper layers' q/k leaves under rank collapse, see BERT_GRAD_SLACK)
+    ref = bert_run(torch, False, dtype=torch.float32)[4]
+    gaps = gradient_gaps(grads, ref)
+    plain_gaps = gradient_gaps(plain_grads, ref)
+    bound = {name: max(GRAD_TOL, BERT_GRAD_SLACK * plain_gaps[name])
+             for name in gaps}
+    over = {name: gap for name, gap in gaps.items()
+            if not (math.isfinite(gap) and gap <= bound[name])}
+    worst_leaf = max(gaps, key=lambda name: gaps[name] / bound[name])
+    check(not over,
+          f"bert: first-step gradients off the float32 step beyond "
+          f"max({GRAD_TOL}, {BERT_GRAD_SLACK} x plain bf16's gap): "
+          + ", ".join(f"{name} {gap:.3e} (plain {plain_gaps[name]:.3e})"
+                      for name, gap in over.items()))
+    mutual = gradient_gaps(grads, plain_grads)
+    worst_mutual = max(mutual, key=mutual.get)
+    worst_plain = max(plain_gaps, key=plain_gaps.get)
+    plain_median = sorted(plain_ms[2:])[len(plain_ms[2:]) // 2]
+    say("bert", f"plain attention, same seed, batches and masks: worst "
+                f"per-step loss gap {worst:.3e} (tol {LOSS_TOL}); median "
+                f"step {plain_median:.2f} ms; peak memory "
+                f"{plain_peak / 2**30:.2f} GiB. First-step gradients against "
+                f"a float32 plain step, ||g - g_f32|| / ||g_f32|| over "
+                f"{len(gaps)} leaves: flash worst {gaps[worst_leaf]:.3e} "
+                f"({worst_leaf}; bound {bound[worst_leaf]:.3e}), plain bf16 "
+                f"worst {plain_gaps[worst_plain]:.3e} ({worst_plain}); flash "
+                f"against plain bf16 worst {mutual[worst_mutual]:.3e} "
+                f"({worst_mutual})")
+    mfwd, mbwd, mask_fwd, mask_bwd, padded, padded_plain = bert_masked_run(
+        torch)
+    check(all(map(math.isfinite, padded)), f"bert: padded losses {padded}")
+    check((mfwd, mbwd) == (fwd, bwd) and (mask_fwd, mask_bwd) == (fwd, bwd),
+          f"bert: with pad_token_id K1 launched fwd {mfwd} bwd {mbwd}, with "
+          f"the key mask {mask_fwd} / {mask_bwd}; want {fwd} / {bwd}, all "
+          "masked")
+    gap = max(abs(a - b) for a, b in zip(padded, padded_plain))
+    check(gap <= LOSS_TOL, f"bert: padded flash vs plain losses differ by "
+                           f"{gap:.3e} > {LOSS_TOL}")
+    say("bert", f"pad_token_id={BERT_PAD} on padded tails: K1 fwd {mfwd} "
+                f"bwd {mbwd}, every one with the key mask; losses "
+                f"{[round(x, 4) for x in padded]}, worst gap to plain "
+                f"attention {gap:.3e} (tol {LOSS_TOL})")
+    cmd = [sys.executable, "-m", "distributed_pytorch_example_tpu_torch.train",
+           "--model", "bert-base", "--dataset", "synthetic-tokens", "--dtype",
+           "bfloat16", "--optimizer", "lamb", "--seq-len", str(BERT_SEQ),
+           "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+           "--num-samples", "64", "--checkpoint-dir", ""]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0 and "Training completed" in log,
+          f"bert CLI exit {proc.returncode}: {log[-3000:]}")
+    tail = [line.split("] ", 1)[-1] for line in log.splitlines()
+            if "Throughput" in line or "Training completed" in line
+            or "Val Loss" in line]
+    say("bert", f"{' '.join(cmd[1:])} in {time.perf_counter() - t0:.1f} s: "
+                f"{tail}")
+    return fwd, bwd
+
+
 def free_port():
     import socket
 
@@ -1719,7 +2074,7 @@ def main() -> int:
         return 2
     phase = "probe"
     try:
-        _smi, bandwidth = probe(torch)
+        smi_line, bandwidth = probe(torch)
         phase = "build"
         build()
         phase = "kernel"
@@ -1738,6 +2093,9 @@ def main() -> int:
         k3a["launches"], k3b["launches"] = zero1_path(torch, losses, grads)
         phase = "checkpoint"
         checkpoint(torch)
+        phase = "bert"
+        k1_fwd["bert"]["launches"], k1_bwd["bert"]["launches"] = bert(
+            torch, smi_line)
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)

@@ -16,7 +16,18 @@
 //     backward products); every product accumulates in float32;
 //   - a row with no valid key (m == NEG_INF) gives output 0, lse NEG_INF
 //     and zero gradients;
-//   - GQA: query head n reads kv head n / group; dk/dv sum the group.
+//   - GQA: query head n reads kv head n / group; dk/dv sum the group;
+//   - delta = rowsum(dO * O), the softmax backward's row term. The TPU
+//     kernel takes it from the bf16 output O; the bf16 backward here sums
+//     it as rowsum(P * dP) from the very p and dp it forms dS with (the
+//     same value in exact arithmetic), so every row of dS sums to 0 to
+//     float32 rounding. With the bf16 O, where every key's v is nearly the
+//     same (a deep post-LN encoder at initialisation: BERT-base's upper
+//     layers), dP - delta is a small difference that O's rounding shifts
+//     by a constant per row; dQ and dK then gain a component along the
+//     keys' and queries' shared direction, and BERT-base's layer-11 q/k
+//     kernel gradients came out 1.9x their norm off a float32 step
+//     (plain bf16 attention: 4.7e-2).
 //
 // Layouts. q, k, v, o, do, dq, dk, dv are (B, S, heads, H) with the head
 // dimension contiguous; the other three strides come from the caller, so the
@@ -50,8 +61,9 @@
 //     only on tiles that straddle the diagonal, and a warp whose 16 rows all
 //     precede a tile skips it;
 //   - backward, the TPU's `_bwd_split` (deterministic, no atomics):
-//     the dq kernel (one CTA per q tile) first writes delta = rowsum(dO * O)
-//     for its own rows, then recomputes S and dP per k tile and accumulates
+//     the dq kernel (one CTA per q tile) sweeps its k tiles twice: the
+//     first recomputes S and dP to sum delta = rowsum(P * dP) for its own
+//     rows and writes it, the second recomputes them again and accumulates
 //     dQ += dS.K in registers; the dk/dv kernel (one CTA per k tile of a kv
 //     head, launched after dq on the same stream, so delta is complete)
 //     computes S^T = K.Q^T and dP^T = V.dO^T directly, so P^T and dS^T are
@@ -416,9 +428,8 @@ struct Dq16 {
   static constexpr int kBr = bf16_tile(H);
   static constexpr int kBc = H == 64 ? 64 : (H == 128 ? 32 : 16);
   static constexpr int kThreads = kBr / 16 * 32;
-  // Q, dO, two stages of K, two of V, delta
-  static constexpr size_t kSmem =
-      sizeof(bf16) * (2 * kBr + 4 * kBc) * H + sizeof(float) * kBr;
+  // Q, dO, two stages of K, two of V
+  static constexpr size_t kSmem = sizeof(bf16) * (2 * kBr + 4 * kBc) * H;
 };
 
 template <int H>
@@ -431,7 +442,6 @@ __global__ void __launch_bounds__(Dq16<H>::kThreads)
   bf16* sDO = sQ + kBr * H;
   bf16* sK = sDO + kBr * H;
   bf16* sV = sK + 2 * kBc * H;
-  float* sDelta = reinterpret_cast<float*>(sV + 2 * kBc * H);
 
   const int n = blockIdx.x, b = blockIdx.y;
   const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
@@ -457,86 +467,76 @@ __global__ void __launch_bounds__(Dq16<H>::kThreads)
   load_async<H, kBc, kNT>(sV, vg, a.sv.s);
   cp_commit();
 
-  // delta = rowsum(dO * O) for this tile's rows, two threads a row; the
-  // dk/dv kernel reads it after this kernel
-  {
-    static_assert(kNT == 2 * kBr, "two threads per row");
-    const int r = threadIdx.x / 2, part = threadIdx.x % 2;
-    const bf16* orow = static_cast<const bf16*>(a.o) + b * a.so.b +
-                       (long long)(q0 + r) * a.so.s + n * a.so.h;
-    const bf16* drow = static_cast<const bf16*>(a.dout) + b * a.sdo.b +
-                       (long long)(q0 + r) * a.sdo.s + n * a.sdo.h;
-    float acc = 0.f;
-#pragma unroll
-    for (int c = part * 8; c < H; c += 16) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 of = __bfloat1622float2(o2[e]);
-        const float2 df = __bfloat1622float2(d2[e]);
-        acc += of.x * df.x + of.y * df.y;
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (part == 0) {
-      sDelta[r] = acc;
-      a.delta[row0 + r] = acc;
-    }
-  }
-  __syncthreads();
-  float dl[2], lse2[2];
+  float lse2[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    dl[h] = sDelta[wr + g + 8 * h];
     lse2[h] = a.lse[row0 + wr + g + 8 * h] * kLog2e;
   }
-
   const float sl2 = a.scale * kLog2e;
   const float* mrow = a.mask ? a.mask + (long long)b * a.seq_k : nullptr;
+  // pass 0 sums delta = rowsum(P * dP) (each thread its columns of rows g
+  // and g + 8, then the quad); pass 1 forms dS = P * (dP - delta) * scale
+  // from the same p and dp, and dQ += dS.K
+  float dl[2] = {0.f, 0.f};
   float dq[H / 8][4] = {};
-  for (int j = 0; j < n_kt; ++j) {
-    if (j + 1 < n_kt) {
-      const int st = (j + 1) & 1;
-      const long long k1 = (long long)(j + 1) * kBc;
-      load_async<H, kBc, kNT>(sK + st * kBc * H, kg + k1 * a.sk.s, a.sk.s);
-      load_async<H, kBc, kNT>(sV + st * kBc * H, vg + k1 * a.sv.s, a.sv.s);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = j * kBc;
-    if (!(a.causal && k0 > q0 + wr + 15)) {
-      const bf16* tK = sK + (j & 1) * kBc * H;
-      const bf16* tV = sV + (j & 1) * kBc * H;
-      float s[kBc / 8][4] = {}, dp[kBc / 8][4] = {};
-      mma_abt<H, kBc>(s, sQ, wr, tK, lane);
-      mma_abt<H, kBc>(dp, sDO, wr, tV, lane);
-      const bool diag = a.causal && k0 + kBc - 1 > q0 + wr;
-      const int r0 = q0 + wr + g;
-      // p from the saved lse (re-masked: a dead row's lse is NEG_INF), then
-      // ds = p * (dp - delta) * scale
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
 #pragma unroll
-      for (int nt = 0; nt < kBc / 8; ++nt) {
-        const int c = k0 + nt * 8 + 2 * t;
-        float2 mk = make_float2(1.f, 1.f);
-        if (mrow) mk = *reinterpret_cast<const float2*>(mrow + c);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const bool masked = (diag && c + (e & 1) > r0 + 8 * h) ||
-                              !(((e & 1) ? mk.y : mk.x) > 0.f);
-          const float p = masked ? 0.f : exp2_fast(s[nt][e] * sl2 - lse2[h]);
-          s[nt][e] = p * (dp[nt][e] - dl[h]) * a.scale;
-        }
+      for (int h = 0; h < 2; ++h) {
+        dl[h] = quad_sum(dl[h]);
+        // the dk/dv kernel reads it after this kernel
+        if (t == 0) a.delta[row0 + wr + g + 8 * h] = dl[h];
       }
-      mma_pb<H, kBc, H>(dq, s, tK, 0, lane);
+      // tile 0 again; its stage is free since the last __syncthreads
+      load_async<H, kBc, kNT>(sK, kg, a.sk.s);
+      load_async<H, kBc, kNT>(sV, vg, a.sv.s);
+      cp_commit();
     }
-    __syncthreads();
+    for (int j = 0; j < n_kt; ++j) {
+      if (j + 1 < n_kt) {
+        const int st = (j + 1) & 1;
+        const long long k1 = (long long)(j + 1) * kBc;
+        load_async<H, kBc, kNT>(sK + st * kBc * H, kg + k1 * a.sk.s, a.sk.s);
+        load_async<H, kBc, kNT>(sV + st * kBc * H, vg + k1 * a.sv.s, a.sv.s);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      const int k0 = j * kBc;
+      if (!(a.causal && k0 > q0 + wr + 15)) {
+        const bf16* tK = sK + (j & 1) * kBc * H;
+        const bf16* tV = sV + (j & 1) * kBc * H;
+        float s[kBc / 8][4] = {}, dp[kBc / 8][4] = {};
+        mma_abt<H, kBc>(s, sQ, wr, tK, lane);
+        mma_abt<H, kBc>(dp, sDO, wr, tV, lane);
+        const bool diag = a.causal && k0 + kBc - 1 > q0 + wr;
+        const int r0 = q0 + wr + g;
+        // p from the saved lse (re-masked: a dead row's lse is NEG_INF)
+#pragma unroll
+        for (int nt = 0; nt < kBc / 8; ++nt) {
+          const int c = k0 + nt * 8 + 2 * t;
+          float2 mk = make_float2(1.f, 1.f);
+          if (mrow) mk = *reinterpret_cast<const float2*>(mrow + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const bool masked = (diag && c + (e & 1) > r0 + 8 * h) ||
+                                !(((e & 1) ? mk.y : mk.x) > 0.f);
+            const float p =
+                masked ? 0.f : exp2_fast(s[nt][e] * sl2 - lse2[h]);
+            if (pass == 0) {
+              dl[h] += p * dp[nt][e];
+            } else {
+              s[nt][e] = p * (dp[nt][e] - dl[h]) * a.scale;
+            }
+          }
+        }
+        if (pass == 1) mma_pb<H, kBc, H>(dq, s, tK, 0, lane);
+      }
+      __syncthreads();
+    }
   }
   const float one[2] = {1.f, 1.f};
   store_rows<H>(dq, one, sQ, wr,

@@ -1,5 +1,12 @@
-"""The loader's checkpoint stamp (the part of the JAX package's
-data/intake.py that checkpoints carry).
+"""Sealed data files and the loader's checkpoint stamp (the parts of the
+JAX package's data/intake.py that token corpora and checkpoints use).
+
+A data file may carry a ``DPX-CRC1`` sidecar, ``<file>.dpxcrc``: the
+checkpoint envelope (``robustness/integrity.py``) around ``<I crc32><Q
+size>`` of the file's bytes. :func:`seal_file` writes it and
+:func:`verify_file` checks it; the bytes are the JAX package's, so a
+sidecar written by either package verifies in the other. A file without
+a sidecar is legacy data: readable, unverified.
 
 A checkpoint stamps the loader's cursor whenever the loader has a sampler,
 as the JAX package's does: the epoch, the batch to resume at (in global
@@ -13,9 +20,21 @@ refused rather than resumed without it.
 
 from __future__ import annotations
 
+import os
+import struct
+import zlib
 from typing import Iterable, Optional
 
 import numpy as np
+
+from distributed_pytorch_example_tpu_torch.robustness.integrity import (
+    CheckpointCorruptError,
+    seal_header,
+    unseal,
+)
+
+SIDECAR_SUFFIX = ".dpxcrc"
+_SIDECAR_FMT = "<IQ"
 
 LOADER_MANIFEST_KEY = "loader_manifest"
 LOADER_MANIFEST_FORMAT = 1
@@ -23,6 +42,51 @@ LOADER_MANIFEST_FORMAT = 1
 # the sampler's SplitMix64 constants (data/sampler.py)
 _GOLDEN = 0x9E3779B97F4A7C15
 _MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+class ShardCorruptError(RuntimeError):
+    """A sealed data file failed its sidecar check."""
+
+
+def sidecar_path(path: str) -> str:
+    return path + SIDECAR_SUFFIX
+
+
+def _crc_and_size(path: str):
+    """crc32 and length of the file's bytes, read in 16 MiB pieces."""
+    crc, size = 0, 0
+    with open(path, "rb") as f:
+        for piece in iter(lambda: f.read(1 << 24), b""):
+            crc = zlib.crc32(piece, crc)
+            size += len(piece)
+    return crc, size
+
+
+def seal_file(path: str) -> str:
+    """Write the ``DPX-CRC1`` sidecar of ``path``; returns its path."""
+    crc, size = _crc_and_size(path)
+    body = struct.pack(_SIDECAR_FMT, crc, size)
+    side = sidecar_path(path)
+    with open(side, "wb") as f:
+        f.write(seal_header([body]) + body)
+    return side
+
+
+def verify_file(path: str) -> Optional[bool]:
+    """Check ``path`` against its sidecar: None without one (legacy,
+    unverified), True when the file matches, False on a mismatch, a
+    truncation or a torn sidecar (then neither half can be trusted)."""
+    side = sidecar_path(path)
+    if not os.path.exists(side):
+        return None
+    try:
+        with open(side, "rb") as f:
+            body = unseal(f.read(), source=side)
+        want_crc, want_size = struct.unpack(_SIDECAR_FMT, body)
+        crc, size = _crc_and_size(path)
+    except (CheckpointCorruptError, OSError, struct.error):
+        return False
+    return size == want_size and crc == want_crc
 
 
 def _splitmix64_array(x: np.ndarray) -> np.ndarray:

@@ -2,7 +2,8 @@
 data/synthetic.py).
 
 The reference's ``SyntheticDataset`` of Gaussian features and uniform
-integer labels, and uniform token sequences for GPT-2. Each draws from the
+integer labels, and uniform token sequences over the model's vocabulary
+(GPT-2's 50257, BERT's 30522). Each draws from the
 same ``np.random.default_rng(seed)`` stream as the JAX package's, so the
 samples are identical element for element. Map-style, plus a vectorized
 ``get_batch(indices)`` that the loader prefers.
@@ -59,8 +60,9 @@ class SyntheticClassificationDataset(_ArrayDataset):
 
 
 class SyntheticTokenDataset(_ArrayDataset):
-    """Uniform int32 token sequences (num_samples, seq_len) for the LM
-    configs; the next-token shift happens in the task."""
+    """Uniform int32 token sequences (num_samples, seq_len) over
+    ``vocab_size`` ids for the LM configs; the next-token shift or the MLM
+    masking happens in the task."""
 
     def __init__(
         self,

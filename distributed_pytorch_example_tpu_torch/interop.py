@@ -1,5 +1,5 @@
-"""Carry GPT-2 and SimpleNet weights (and gradients) between the JAX
-package and this port.
+"""Carry SimpleNet, GPT-2 and BERT weights (and gradients) between the
+JAX package and this port.
 
 One mapping, :func:`flax_leaves`, names each of a model's parameters by
 its path in the JAX package's flax param tree, with the view that turns
@@ -9,9 +9,15 @@ it into its JAX layout:
   transposed; ``bias`` <-> ``bias``;
 - ``LayerNorm`` ``weight`` / ``bias`` <-> ``scale`` / ``bias``;
 - ``Embedding`` ``weight`` (V, D) <-> ``embedding``;
-- a bare parameter keeps its name (GPT-2's ``wpe``, (1, max_len, D));
-- ``decoder.layers.<i>`` <-> flax ``decoder/layer_<i>``; SimpleNet's
-  ``Dense_<i>`` keep their names.
+- a bare parameter keeps its name (GPT-2's ``wpe`` and BERT's
+  ``pos_embed``, both (1, max_len, D); BERT's (V,) ``mlm_bias``);
+- ``<stack>.layers.<i>`` <-> flax ``<stack>/layer_<i>`` (GPT-2's
+  ``decoder``, BERT's ``encoder``); SimpleNet's ``Dense_<i>`` keep their
+  names.
+
+The tied heads need nothing of their own: GPT-2's and BERT's logits read
+the token table (``wte/embedding``, ``tok_embed/embedding``) the
+embedding lookup uses.
 
 Leaves come in the order ``jax.tree_util.tree_leaves`` walks the JAX
 tree (paths sorted), so the wire layer (``parallel/wire.py``) lays out
@@ -76,10 +82,11 @@ _ATTRS = {
 
 def flax_leaves(model: nn.Module) -> List[FlaxLeaf]:
     """The model's parameters in the JAX tree's leaf order (sorted flax
-    paths): ``decoder.layers.<i>`` is ``decoder/layer_<i>``, a
+    paths): ``<stack>.layers.<i>`` is ``<stack>/layer_<i>``, a
     ``Linear``'s weight its transposed ``kernel``, a ``LayerNorm``'s
     weight its ``scale``, an ``Embedding``'s weight its ``embedding``,
-    and a bare parameter keeps its name (GPT-2's ``wpe``)."""
+    and a bare parameter keeps its name (GPT-2's ``wpe``, BERT's
+    ``pos_embed`` and ``mlm_bias``)."""
     modules = dict(model.named_modules())
     leaves = []
     for name, _ in model.named_parameters():

@@ -1,5 +1,14 @@
-"""Models: GPT-2, SimpleNet and the shared transformer blocks."""
+"""Models: SimpleNet, GPT-2, BERT-base and the shared transformer blocks.
 
+``get_model(name, **overrides)`` is the string registry the CLI uses,
+with the JAX package's names (its ``models/__init__.py``).
+"""
+
+from typing import Any
+
+from torch import nn
+
+from distributed_pytorch_example_tpu_torch.models.bert import BertBase
 from distributed_pytorch_example_tpu_torch.models.gpt2 import GPT2
 from distributed_pytorch_example_tpu_torch.models.mlp import SimpleNet
 from distributed_pytorch_example_tpu_torch.models.transformer import (
@@ -10,12 +19,35 @@ from distributed_pytorch_example_tpu_torch.models.transformer import (
     tied_head_logits,
 )
 
+_REGISTRY = {
+    ("mlp", "simplenet"): SimpleNet,
+    ("bert-base", "bert"): BertBase,
+    ("gpt2", "gpt-2", "gpt2-124m"): GPT2,
+}
+
+
+def get_model(name: str, **overrides: Any) -> nn.Module:
+    """Build a model by registry name (the JAX package's names); any
+    other name (resnet18/50, vit-b16 and llama are not ported yet) raises
+    ValueError."""
+    key = name.lower().replace("_", "-")
+    for names, cls in _REGISTRY.items():
+        if key in names:
+            return cls(**overrides)
+    raise ValueError(
+        f"model {name!r} is unknown or not ported to the PyTorch package "
+        "yet; see ROADMAP.md queue 1"
+    )
+
+
 __all__ = [
+    "BertBase",
     "GPT2",
     "MlpBlock",
     "MultiHeadAttention",
     "SimpleNet",
     "TransformerBlock",
     "TransformerStack",
+    "get_model",
     "tied_head_logits",
 ]

@@ -12,11 +12,14 @@ them (``dense``: inputs, kernel and bias in ``dtype``; ``layer_norm``:
 float32 statistics and affine, output in ``dtype``; GELU in ``dtype``).
 ``torch.autocast`` is not used: its casting rules differ from flax's.
 
-This port carries what GPT-2 serving and training run: pre-LN, causal
-multi-head attention, float32 or bfloat16. Not in it, and refused when
-asked for: mixture-of-experts MLPs, rematerialisation and sequence
-parallelism; the contiguous (non-paged) KV cache. GQA, RoPE, post-LN and
-masks land with the models that use them (ROADMAP.md queue 1).
+This port carries what GPT-2 and BERT run: pre-LN (GPT-2) or post-LN
+(BERT, ``prenorm=False``) blocks with the LayerNorm epsilon passed
+through, causal or non-causal multi-head self-attention, an optional
+(B, S) key-padding ``kv_mask`` (True = attend) carried block by block to
+``dot_product_attention``, float32 or bfloat16. Not in it, and refused
+when asked for: mixture-of-experts MLPs, rematerialisation and sequence
+parallelism; the contiguous (non-paged) KV cache. GQA, RoPE and general
+(Q, K) masks land with the models that use them (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -153,7 +156,7 @@ class MultiHeadAttention(nn.Module):
             self.pages_k.zero_()
             self.pages_v.zero_()
 
-    def forward(self, x, *, page_table=None, row_lens=None):
+    def forward(self, x, *, kv_mask=None, page_table=None, row_lens=None):
         batch, seq = x.shape[0], x.shape[1]
         shape = (batch, seq, self.num_heads, self.head_dim)
         dt = self.dtype
@@ -161,6 +164,9 @@ class MultiHeadAttention(nn.Module):
         k = dense(self.k, x, dt).reshape(shape)
         v = dense(self.v, x, dt).reshape(shape)
         if self.decode:
+            if kv_mask is not None:
+                raise ValueError("decode mode supports causal attention "
+                                 "only, without masks")
             if page_table is None or row_lens is None:
                 raise ValueError(
                     "paged decode needs the engine's page_table and row_lens"
@@ -168,7 +174,8 @@ class MultiHeadAttention(nn.Module):
             out = self._paged_step(q, k, v, page_table, row_lens)
         else:
             out = dot_product_attention(
-                q, k, v, causal=self.causal, use_flash=self.use_flash,
+                q, k, v, kv_mask=kv_mask, causal=self.causal,
+                use_flash=self.use_flash,
             )
         return dense(self.o, out.reshape(batch, seq, -1), dt)
 
@@ -245,7 +252,8 @@ class MlpBlock(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """One pre-LN block (GPT): x + attn(ln1(x)), then + mlp(ln2(x))."""
+    """One block: pre-LN (GPT, ``prenorm=True``): x + attn(ln1(x)), then
+    + mlp(ln2(x)); post-LN (BERT): ln1(x + attn(x)), then ln2(x + mlp(x))."""
 
     def __init__(
         self,
@@ -254,11 +262,13 @@ class TransformerBlock(nn.Module):
         model_dim: int,
         mlp_dim: int,
         *,
+        prenorm: bool = True,
         layer_norm_epsilon: float = 1e-5,
         dtype: torch.dtype = torch.float32,
         **attn_kw,
     ):
         super().__init__()
+        self.prenorm = prenorm
         self.dtype = dtype
         self.attn = MultiHeadAttention(num_heads, head_dim, model_dim,
                                        dtype=dtype, **attn_kw)
@@ -272,11 +282,14 @@ class TransformerBlock(nn.Module):
         for ln in (self.ln1, self.ln2):
             ln.reset_parameters()
 
-    def forward(self, x, *, page_table=None, row_lens=None):
+    def forward(self, x, *, kv_mask=None, page_table=None, row_lens=None):
         dt = self.dtype
-        x = x + self.attn(layer_norm(self.ln1, x, dt), page_table=page_table,
-                          row_lens=row_lens)
-        return x + self.mlp(layer_norm(self.ln2, x, dt))
+        kw = dict(kv_mask=kv_mask, page_table=page_table, row_lens=row_lens)
+        if self.prenorm:
+            x = x + self.attn(layer_norm(self.ln1, x, dt), **kw)
+            return x + self.mlp(layer_norm(self.ln2, x, dt))
+        x = layer_norm(self.ln1, x + self.attn(x, **kw), dt)
+        return layer_norm(self.ln2, x + self.mlp(x), dt)
 
 
 class TransformerStack(nn.Module):
@@ -311,7 +324,8 @@ class TransformerStack(nn.Module):
         for layer in self.layers:
             layer.reset_parameters(generator)
 
-    def forward(self, x, *, page_table=None, row_lens=None):
+    def forward(self, x, *, kv_mask=None, page_table=None, row_lens=None):
         for layer in self.layers:
-            x = layer(x, page_table=page_table, row_lens=row_lens)
+            x = layer(x, kv_mask=kv_mask, page_table=page_table,
+                      row_lens=row_lens)
         return x

@@ -3,8 +3,8 @@
 - :func:`flash_attention_fwd` launches the forward kernel of
   ``csrc/flash_attention.cu`` (o and the float32 logsumexp);
   :func:`flash_attention_bwd` launches its backward (for bf16 the dq
-  kernel, which also writes delta = rowsum(dO ∘ O), then the dk/dv kernel;
-  for float32 delta, dq and dk/dv). They are the Hopper port of the TPU
+  kernel, which also writes delta, then the dk/dv kernel; for float32
+  delta, dq and dk/dv). They are the Hopper port of the TPU
   kernels in ``distributed_pytorch_example_tpu/ops/pallas/
   flash_attention.py`` (``_fwd`` / ``_fwd_single`` and ``_bwd`` /
   ``_bwd_single`` / ``_bwd_split``). Each launch adds one to
@@ -18,6 +18,17 @@
 - :func:`flash_attention` is the ``torch.autograd.Function`` the model
   calls: (B, S, N, H) in and out. On CUDA tensors it launches the kernels
   or raises; it never computes a CUDA call another way.
+
+delta, the softmax backward's row term, is rowsum(dO ∘ O) in exact
+arithmetic; the TPU kernel takes it from its bf16 output O. Here it is
+rowsum(p ∘ dp), from the very p and dp that form ds, so each row of ds
+sums to 0 to float32 rounding. Where every key's v is nearly the same (a
+deep post-LN encoder at initialisation, BERT-base's upper layers), dp −
+delta is a small difference that the bf16 O's rounding shifts by a
+constant per row; dq and dk then gain a component along the keys' and
+queries' shared direction, and BERT-base's layer-11 q/k kernel
+gradients came out 1.9x their norm off a float32 step (plain bf16
+attention: 4.7e-2; ``PERF.md``).
 
 Semantics (the TPU kernel's): float32 logits, top-left causal mask
 (row >= col), ``NEG_INF = -1e30`` as the masked logit, p cast to v's dtype
@@ -280,18 +291,19 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal, kv_mask,
     """Plain backward, the explicit formula the kernels compute: p from the
     saved lse (re-masked, so a dead row's p is 0), dv = pᵀ·dO,
     dp = dO·vᵀ, ds = p ∘ (dp − delta) · scale, dq = ds·k, dk = dsᵀ·q, with
-    delta = rowsum(dO ∘ O); dk/dv summed over each GQA group."""
+    delta = rowsum(p ∘ dp) (rowsum(dO ∘ O) in exact arithmetic; ``o`` is
+    taken for the signature's sake); dk/dv summed over each GQA group."""
     heads, kv_heads = q.shape[2], k.shape[2]
     s, valid = _masked_logits(q, k, causal, kv_mask, softmax_scale)
     p = torch.exp(s - lse[..., None])
     if valid is not None:
         p = torch.where(valid[:, None, None, :], p, 0.0)
     do_f = do.float()
-    delta = (do_f * o.float()).sum(-1).transpose(1, 2)  # (B, N, Sq)
     kx = _expand_kv(k, heads)
     vx = _expand_kv(v, heads)
     dv = torch.einsum("bnqk,bqnh->bknh", p.to(do.dtype).float(), do_f)
     dp = torch.einsum("bqnh,bknh->bnqk", do_f, vx.float())
+    delta = (p * dp).sum(-1)  # (B, N, Sq): rowsum(dO ∘ O), from p and dp
     ds = p * (dp - delta[..., None]) * softmax_scale
     dq = torch.einsum("bnqk,bknh->bqnh", ds.to(k.dtype).float(), kx.float())
     dk = torch.einsum("bnqk,bqnh->bknh", ds.to(q.dtype).float(), q.float())

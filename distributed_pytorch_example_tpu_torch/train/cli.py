@@ -5,9 +5,16 @@
 With no flags it runs the reference's default config (reference
 train.py:214-218): SimpleNet on 10,000 synthetic samples, 10 epochs,
 per-replica batch 64, Adam at lr 1e-3, train:val 10:1, on the card.
-``--model gpt2 --dataset synthetic-tokens`` trains GPT-2 124M; in
-``--dtype bfloat16`` at a sequence length that is a multiple of 128 its
-attention runs the flash kernels forward and backward.
+``--model gpt2 --dataset synthetic-tokens`` trains GPT-2 124M and
+``--model bert-base --dataset synthetic-tokens`` BERT-base with the
+masked-LM task (vocab 30522, ``[MASK]`` = 103, ``--seq-len`` at most 512;
+``--pad-token-id`` masks pad keys out of attention and pad positions out
+of the loss); in ``--dtype bfloat16`` at a sequence length that is a
+multiple of 128 their attention runs the flash kernels forward and
+backward. ``--dataset tokens-file`` reads a real corpus from
+``<--data-dir or $DPX_DATA_DIR or ./data>/train.bin`` and ``val.bin``
+(raw ``--token-dtype``, memory-mapped, checked against a ``DPX-CRC1``
+sidecar when there is one).
 
 More than one process (``REPLICAS`` > 1, see runtime/distributed.py)
 gives data parallelism: each process takes its shard of the global batch
@@ -30,6 +37,7 @@ card. Flags of the JAX CLI that this slice does not serve are refused.
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
 
 import torch
@@ -38,8 +46,9 @@ from distributed_pytorch_example_tpu_torch.data import (
     DeviceLoader,
     SyntheticClassificationDataset,
     SyntheticTokenDataset,
+    load_token_file,
 )
-from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
+from distributed_pytorch_example_tpu_torch.models import get_model
 from distributed_pytorch_example_tpu_torch.parallel import (
     WireConfig,
     data_parallel,
@@ -67,6 +76,7 @@ from distributed_pytorch_example_tpu_torch.train.optimizers import (
 from distributed_pytorch_example_tpu_torch.train.tasks import (
     CausalLMTask,
     ClassificationTask,
+    MLMTask,
 )
 from distributed_pytorch_example_tpu_torch.utils.config import (
     add_framework_args,
@@ -77,7 +87,11 @@ from distributed_pytorch_example_tpu_torch.utils.config import (
 
 logger = get_logger(__name__)
 
-_DATASETS = {"mlp": "synthetic", "gpt2": "synthetic-tokens"}
+_TOKENS = ("synthetic-tokens", "tokens-file")
+_DATASETS = {"mlp": ("synthetic",), "gpt2": _TOKENS, "bert-base": _TOKENS}
+_VOCAB = {"gpt2": 50257, "bert-base": 30522}  # JAX train.py:46-56
+_MAX_SEQ = {"gpt2": 1024, "bert-base": 512}
+MASK_TOKEN_ID = 103  # BERT's [MASK] (JAX train.py:101-106)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,26 +104,40 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def build_dataset(args, num_samples: int, seed: int):
+def build_dataset(args, num_samples: int, seed: int, train: bool = True):
     if args.dataset == "synthetic":
         return SyntheticClassificationDataset(
             num_samples=num_samples, num_classes=args.num_classes, seed=seed
         )
+    if args.dataset == "tokens-file":
+        root = args.data_dir or os.environ.get("DPX_DATA_DIR", "./data")
+        return load_token_file(
+            os.path.join(root, "train.bin" if train else "val.bin"),
+            seq_len=args.seq_len, dtype=args.token_dtype)
     return SyntheticTokenDataset(num_samples=num_samples, seq_len=args.seq_len,
-                                 vocab_size=50257, seed=seed)
+                                 vocab_size=_VOCAB[args.model], seed=seed)
 
 
 def build_model(args, device: torch.device):
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    kw = dict(dtype=torch.bfloat16 if args.dtype == "bfloat16"
+              else torch.float32, device=device, seed=args.seed)
     if args.model == "mlp":
-        return SimpleNet(num_classes=args.num_classes, dtype=dtype,
-                         device=device, seed=args.seed)
-    return GPT2(
-        dtype=dtype,
-        use_flash=None if args.flash == "auto" else args.flash == "on",
-        logits_mode="hidden" if args.lm_loss == "fused" else "full",
-        device=device, seed=args.seed,
-    )
+        kw["num_classes"] = args.num_classes
+    else:
+        kw["use_flash"] = None if args.flash == "auto" else args.flash == "on"
+        kw["logits_mode"] = "hidden" if args.lm_loss == "fused" else "full"
+    if args.pad_token_id is not None:
+        kw["pad_token_id"] = args.pad_token_id
+    return get_model(args.model, **kw)
+
+
+def build_task(args, model):
+    if args.model == "mlp":
+        return ClassificationTask()
+    if args.model == "bert-base":
+        return MLMTask(model.vocab_size, mask_token_id=MASK_TOKEN_ID,
+                       pad_token_id=args.pad_token_id)
+    return CausalLMTask()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -123,14 +151,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.model not in _DATASETS:
         parser.error(f"--model {args.model!r} is not ported yet; the port "
                      f"trains {sorted(_DATASETS)}")
-    if args.dataset != _DATASETS[args.model]:
+    if args.dataset not in _DATASETS[args.model]:
         parser.error(f"--model {args.model} trains on --dataset "
-                     f"{_DATASETS[args.model]}, not {args.dataset!r}")
-    if args.optimizer in ("lamb", "adafactor"):
-        parser.error(f"--optimizer {args.optimizer} is not ported yet")
-    if args.model == "gpt2" and not 2 <= args.seq_len <= 1024:
-        parser.error(f"--seq-len {args.seq_len} outside GPT-2's context "
-                     "[2, 1024]")
+                     f"{'|'.join(_DATASETS[args.model])}, not "
+                     f"{args.dataset!r}")
+    if args.optimizer == "adafactor":
+        parser.error("--optimizer adafactor is not ported yet (ROADMAP.md "
+                     "queue 1, item 7)")
+    if args.optimizer == "lamb" and (args.zero1 or args.wire != "none"):
+        parser.error("--optimizer lamb under --zero1 or --wire is not "
+                     "ported yet: its per-leaf norms span every rank's tile "
+                     "(ROADMAP.md queue 1, item 7)")
+    if args.pad_token_id is not None and args.model != "bert-base":
+        parser.error(f"--pad-token-id is only supported for bert models, "
+                     f"not {args.model!r}")
+    if args.model in _MAX_SEQ and not 2 <= args.seq_len <= _MAX_SEQ[args.model]:
+        parser.error(f"--seq-len {args.seq_len} outside {args.model}'s "
+                     f"context [2, {_MAX_SEQ[args.model]}]")
 
     setup_logging()
     if args.chaos:
@@ -153,9 +190,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                 args.epochs, args.batch_size, global_batch, args.lr)
     train_ds = build_dataset(args, args.num_samples, seed=args.seed)
     val_ds = build_dataset(args, max(args.num_samples // 10, global_batch),
-                           seed=args.seed + 1)
+                           seed=args.seed + 1, train=False)
     model = build_model(args, device)
-    task = ClassificationTask() if args.model == "mlp" else CausalLMTask()
+    task = build_task(args, model)
     train_loader = DeviceLoader(train_ds, global_batch, device=device,
                                 shuffle=True, seed=args.seed)
     val_loader = DeviceLoader(val_ds, global_batch, device=device,

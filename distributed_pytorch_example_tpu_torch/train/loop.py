@@ -142,7 +142,7 @@ class Trainer:
             skip_nonfinite=skip_nonfinite, seed=seed,
         )
         self.train_step = self._step
-        self.eval_step = build_eval_step(task)
+        self.eval_step = build_eval_step(task, seed=seed)
         self.state = TrainState(step=0, model=model, optimizer=optimizer,
                                 rng=seed_key(seed))
         if metrics_file is None and checkpoint_dir:
@@ -348,8 +348,8 @@ class Trainer:
 
     def validate(self, loader) -> Dict[str, float]:
         acc = MetricAccumulator()
-        for batch in loader:
-            acc.append(self.eval_step(self.state, batch))
+        for batch_idx, batch in enumerate(loader):
+            acc.append(self.eval_step(self.state, batch, batch_idx))
         return acc.result()
 
     # -- full fit ---------------------------------------------------------

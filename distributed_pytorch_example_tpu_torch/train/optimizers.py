@@ -3,17 +3,18 @@
 The reference trains with bare Adam at a fixed lr (reference
 train.py:249); that stays the default. The factory composes, as the JAX
 package does from optax, global-norm gradient clipping -> adam | adamw |
-sgd (momentum) under a constant, cosine or linear schedule with linear
-warmup. Here the optimizer is ``torch.optim``'s and the schedule a
-``LambdaLR`` whose factor reproduces the optax schedule step for step:
-optimizer update ``t`` (from 0) runs at ``schedule(t)``, as optax's
-update count does.
+sgd (momentum) | lamb under a constant, cosine or linear schedule with
+linear warmup. Here the optimizer is ``torch.optim``'s (lamb is
+:class:`Lamb`, ``optax.lamb`` as a ``torch.optim.Optimizer``) and the
+schedule a ``LambdaLR`` whose factor reproduces the optax schedule step
+for step: optimizer update ``t`` (from 0) runs at ``schedule(t)``, as
+optax's update count does.
 
 ``every_k > 1`` is ``optax.MultiSteps`` (the JAX CLI's ``--grad-accum``):
 every step accumulates the running mean of the gradients, and every k-th
 applies the update with it (clipped by its own global norm) and advances
 the schedule; the other steps leave the parameters, the moments and the
-schedule as they were. lamb and adafactor are not in this slice and raise.
+schedule as they were. adafactor is not in this slice and raises.
 
 :class:`ShardedUpdate` is the ZeRO-1 update (the JAX step's sharded optax
 update plus its re-replication gather): the optimizer keeps state only for
@@ -23,7 +24,8 @@ the rest.
 Checkpoints carry the optimizer as the optax state tree of the same
 configuration (:meth:`Optimizer.state_tree`, :meth:`Optimizer.
 load_state_tree`): adam ``{'0': {count, mu, nu}, '1': {}}``, adamw one
-more ``{}``, sgd ``{'0': {trace}, '1': {}}``; a schedule's state is
+more ``{}`` (decayed weights), lamb two more (decayed weights, trust
+ratio), sgd ``{'0': {trace}, '1': {}}``; a schedule's state is
 ``{count}`` in place of the last ``{}``; clipping wraps the chain as
 ``{'0': {}, '1': chain}``; ``every_k > 1`` wraps it in ``optax.MultiSteps``
 (``mini_step``, ``gradient_step``, ``inner_opt_state``, ``acc_grads``,
@@ -101,6 +103,66 @@ def make_schedule(
         return lambda count: (warm(count) if count < warmup_steps
                               else sched(count - warmup_steps))
     return sched
+
+
+class Lamb(torch.optim.Optimizer):
+    """``optax.lamb(lr, weight_decay=wd)`` as a torch optimizer, leaf by
+    leaf: ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-6, bias-corrected
+    moments), then ``+ wd * p`` (every leaf, optax's default mask), then
+    the trust ratio ``||p|| / ||u||`` (1 where either norm is 0), then
+    ``-lr``. The moments are ``exp_avg`` / ``exp_avg_sq`` and the update
+    count ``step`` (a float on the CPU), as torch's Adam keeps them. The
+    norms stay on the device: no host sync.
+
+    Per-leaf norms need whole leaves, so under ZeRO-1 (tiles of a leaf on
+    several ranks) :class:`ShardedUpdate` refuses it."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Lamb.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            grads, mus, nus = [], [], []
+            for p in params:
+                st = self.state[p]
+                if "step" not in st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                grads.append(p.grad)
+                mus.append(st["exp_avg"])
+                nus.append(st["exp_avg_sq"])
+            # every leaf of a group shares its count (optax keeps one)
+            count = float(self.state[params[0]]["step"])
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
+            denom = torch._foreach_div(nus, 1 - b2 ** count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(mus, 1 - b1 ** count)
+            torch._foreach_div_(updates, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(updates, params,
+                                    alpha=group["weight_decay"])
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(updates))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0,
+                                p_norm / u_norm)
+            for p, u, r in zip(params, updates, ratio.unbind()):
+                p.add_(u * r, alpha=-group["lr"])
+        return None
 
 
 class Optimizer:
@@ -212,6 +274,8 @@ class Optimizer:
         parts = [first]
         if isinstance(self.optimizer, torch.optim.AdamW):
             parts.append({})  # add_decayed_weights
+        elif isinstance(self.optimizer, Lamb):
+            parts += [{}, {}]  # add_decayed_weights, scale_by_trust_ratio
         parts.append({"count": _i32(count)} if self.scheduled else {})
         inner = {str(i): part for i, part in enumerate(parts)}
         if self.grad_clip_norm:
@@ -441,6 +505,11 @@ class ShardedUpdate:
         else:
             by_path = dict.fromkeys(shapes)
         self.dims = [by_path[leaf.key] for leaf in self.leaves]
+        if isinstance(optimizer.optimizer, Lamb) and any(
+                d is not None for d in self.dims):
+            raise _not_in_slice(
+                "lamb under ZeRO-1 (its per-leaf norms span every rank's "
+                "tile)")
         self.partitioner = partitioner
         self.rank, self.world = rank, world
         self.tiles: List[Optional[torch.Tensor]] = []
@@ -628,7 +697,11 @@ def make_optimizer(
                                 weight_decay=weight_decay)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=momentum)
-    elif name in ("lamb", "adafactor"):
+    elif name == "lamb":
+        # optax.lamb defaults: b1 0.9, b2 0.999, eps 1e-6
+        opt = Lamb(params, lr=lr, betas=(0.9, 0.999), eps=1e-6,
+                   weight_decay=weight_decay)
+    elif name == "adafactor":
         raise _not_in_slice(f"optimizer {name!r}")
     else:
         raise ValueError(f"Unknown optimizer {name!r}")
@@ -640,8 +713,8 @@ def make_optimizer(
         )
     if weight_decay and name in ("adam", "sgd"):
         logger.warning(
-            "weight_decay=%s is ignored by optimizer %r — use 'adamw' for "
-            "decoupled weight decay", weight_decay, name,
+            "weight_decay=%s is ignored by optimizer %r — use 'adamw' or "
+            "'lamb' for decoupled weight decay", weight_decay, name,
         )
     if momentum != 0.9 and name != "sgd":
         logger.warning("momentum=%s only applies to optimizer 'sgd' (got %r)",

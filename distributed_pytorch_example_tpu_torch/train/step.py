@@ -36,6 +36,15 @@ host once per step, the step's only sync in the common case, and the
 ring collectives' error words are read right after it, so a ring wait
 that timed out raises before any update.
 
+Randomness: a task that draws (``uses_generator``) gets a
+``torch.Generator`` on the batch's device, seeded from (seed, step,
+process) for a train step and from (seed, batch index, process) for an
+eval batch: the JAX step's
+``fold_in(rng, step)`` and shard fold, and its eval step's
+``fold_in(rng, batch_idx)``. So masks differ across steps, processes and
+validation batches, and a resumed run draws what the uninterrupted run
+drew. The bits are torch's, not ``jax.random``'s.
+
 Pipelines and the sentinel metrics are not in this slice and raise.
 """
 
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from distributed_pytorch_example_tpu_torch.models.transformer import (
@@ -57,6 +67,23 @@ from distributed_pytorch_example_tpu_torch.train.optimizers import (
     nonfinite_count,
 )
 from distributed_pytorch_example_tpu_torch.train.state import TrainState
+
+
+_TRAIN, _EVAL = 0, 1  # keeps train and eval draws apart
+
+
+def _task_kwargs(task, seed: int, kind: int, index: int, batch) -> dict:
+    """``{"generator": ...}`` for a task that draws (``uses_generator``):
+    the generator of train step (or eval batch) ``index`` on this
+    process, on the batch's device; ``{}`` for any other task."""
+    if not getattr(task, "uses_generator", False):
+        return {}
+    device = next(iter(batch.values())).device
+    mixed = np.random.SeedSequence(
+        [seed, kind, index, distributed.process_index()]
+    ).generate_state(1, np.uint64)[0]
+    return {"generator":
+            torch.Generator(device=device).manual_seed(int(mixed) >> 1)}
 
 
 def _all_reduce_mean_grads(grads) -> None:
@@ -97,16 +124,17 @@ def _microbatches(batch, n: int):
              for k, x in batch.items()} for i in range(n)]
 
 
-def _backward(task, model, batch, n: int) -> Dict[str, torch.Tensor]:
+def _backward(task, model, batch, n: int,
+              task_kw: dict) -> Dict[str, torch.Tensor]:
     """Forward + backward over ``n`` microbatches; the gradients sum into
     ``.grad``, the metrics are their mean."""
     if n == 1:
-        loss, metrics = task.compute_loss(model, batch, train=True)
+        loss, metrics = task.compute_loss(model, batch, train=True, **task_kw)
         loss.backward()
         return metrics
     per = []
     for mb in _microbatches(batch, n):
-        loss, metrics = task.compute_loss(model, mb, train=True)
+        loss, metrics = task.compute_loss(model, mb, train=True, **task_kw)
         loss.backward()
         per.append(metrics)
     return {k: torch.stack([m[k].float() for m in per]).mean()
@@ -125,8 +153,8 @@ def build_train_step(
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """One optimization step: ``step(state, batch) -> metrics``; updates
     ``state`` in place. ``wire`` defaults to the partitioner's, else
-    float32 payloads; ``seed`` seeds the wire quantizer's stochastic
-    rounding (one generator per step and rank)."""
+    float32 payloads; ``seed`` seeds the task's draws and the wire
+    quantizer's stochastic rounding (one generator per step and rank)."""
     if grad_accum_steps < 1:
         raise ValueError(
             f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -177,8 +205,9 @@ def build_train_step(
         # tiles, not the sharded parameters
         model.zero_grad(set_to_none=True)
         optimizer.zero_grad()
+        task_kw = _task_kwargs(task, seed, _TRAIN, state.step, batch)
         metrics = _mean_metrics(_backward(task, model, batch,
-                                          grad_accum_steps))
+                                          grad_accum_steps, task_kw))
         if manual:
             norm = manual_sync(state)
         else:
@@ -211,16 +240,21 @@ def build_train_step(
     return train_step
 
 
-def build_eval_step(task) -> Callable[[TrainState, Dict[str, torch.Tensor]],
-                                      Dict[str, torch.Tensor]]:
-    """One eval step: ``step(state, batch) -> metrics``, the cross-process
-    mean. Reference parity: ``validate`` under ``model.eval()`` +
-    ``no_grad`` (train.py:154-175)."""
+def build_eval_step(task, *, seed: int = 0
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """One eval step: ``step(state, batch, batch_idx=0) -> metrics``, the
+    cross-process mean; ``batch_idx`` picks the batch's draws, so
+    validation masks do not repeat across batches. Reference parity:
+    ``validate`` under ``model.eval()`` + ``no_grad``
+    (train.py:154-175)."""
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    def eval_step(state: TrainState, batch,
+                  batch_idx: int = 0) -> Dict[str, torch.Tensor]:
         state.model.eval()
-        _, metrics = task.compute_loss(state.model, batch, train=False)
+        _, metrics = task.compute_loss(
+            state.model, batch, train=False,
+            **_task_kwargs(task, seed, _EVAL, batch_idx, batch))
         return _mean_metrics(metrics)
 
     return eval_step

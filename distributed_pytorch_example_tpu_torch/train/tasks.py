@@ -5,12 +5,14 @@ A task computes ``(loss, metrics)`` from (model, batch); metrics are
 device scalars (no host sync). Loss and accuracy are means over the local
 batch; the train and eval steps average them across processes, which with
 equal shards (the sampler's padding contract) is the mean over the global
-batch, as in JAX. The masked-LM task comes with BERT (ROADMAP.md queue 1).
+batch, as in JAX. A task with ``uses_generator`` (the masked LM) draws
+from the step's ``torch.Generator`` (the JAX task's ``rng``) on the
+batch's device, passed as ``generator``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,3 +73,86 @@ class CausalLMTask:
             argmax = logits.argmax(-1)
         accuracy = 100.0 * (argmax == targets).float().mean()
         return loss, {"loss": loss.detach(), "accuracy": accuracy}
+
+
+class MLMTask:
+    """BERT-style masked LM on {'tokens'} batches (the JAX package's
+    ``MLMTask``).
+
+    The recipe: select ``mask_rate`` of the positions; of those, 80 %
+    become ``mask_token_id``, 10 % a random token and 10 % stay as they
+    are; the loss is the mean cross-entropy over the selected positions
+    only (divided by ``max(count, 1)``), and accuracy is over them too.
+    ``pad_token_id`` (real, padded corpora) keeps pad positions out of
+    the selection, so out of the loss, and the random draw never yields
+    the pad id; pair it with the model's own ``pad_token_id``, which keeps
+    pad keys out of attention.
+
+    Two pure halves, so that a test can feed JAX's own draws to the loss:
+    :meth:`corrupt` draws the masks from an explicit ``torch.Generator``
+    (the port cannot reproduce ``jax.random``'s bits and does not try),
+    and :meth:`loss` scores the model's output.
+    """
+
+    batch_keys = ("tokens",)
+    uses_generator = True
+
+    def __init__(self, vocab_size: int, mask_token_id: int,
+                 mask_rate: float = 0.15, pad_token_id: Optional[int] = None):
+        self.vocab_size = vocab_size
+        self.mask_token_id = mask_token_id
+        self.mask_rate = mask_rate
+        self.pad_token_id = pad_token_id
+
+    def corrupt(self, tokens: torch.Tensor, generator: torch.Generator
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(inputs, selected)``: the masked model inputs and the (B, S)
+        boolean positions the loss scores. ``generator`` lies on
+        ``tokens``' device."""
+        kw = dict(generator=generator, device=tokens.device)
+        selected = torch.rand(tokens.shape, **kw) < self.mask_rate
+        kind = torch.rand(tokens.shape, **kw)
+        if self.pad_token_id is None:
+            random_tokens = torch.randint(0, self.vocab_size, tokens.shape,
+                                          dtype=tokens.dtype, **kw)
+        else:
+            selected &= tokens != self.pad_token_id
+            # draw from [0, vocab - 1) and step over the pad id: a fake pad
+            # at a scored position would drop out of attention
+            r = torch.randint(0, self.vocab_size - 1, tokens.shape,
+                              dtype=tokens.dtype, **kw)
+            random_tokens = torch.where(r >= self.pad_token_id, r + 1, r)
+        inputs = torch.where(
+            selected & (kind < 0.8), self.mask_token_id,
+            torch.where(selected & (kind >= 0.9), random_tokens, tokens))
+        return inputs, selected
+
+    @staticmethod
+    def loss(model, out: torch.Tensor, tokens: torch.Tensor,
+             selected: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
+        """Cross-entropy of the original ``tokens`` at the ``selected``
+        positions: fused (chunked CE against the tied table and
+        ``mlm_bias``) when the model returns hidden states, else on its
+        float32 logits."""
+        if _fused_head(model):
+            embedding, bias = model.head_params()
+            per_tok, argmax = chunked_softmax_xent(
+                out, embedding, tokens, bias=bias, dtype=model.dtype)
+        else:
+            logits = out.float()
+            per_tok = F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), tokens.reshape(-1),
+                reduction="none").reshape(tokens.shape)
+            argmax = logits.argmax(-1)
+        denom = selected.sum().clamp_min(1)
+        loss = torch.where(selected, per_tok, 0.0).sum() / denom
+        correct = (selected & (argmax == tokens)).sum()
+        accuracy = 100.0 * correct / denom
+        return loss, {"loss": loss.detach(), "accuracy": accuracy}
+
+    def compute_loss(self, model, batch, *, train: bool,
+                     generator: torch.Generator
+                     ) -> Tuple[torch.Tensor, Metrics]:
+        tokens = batch["tokens"].long()
+        inputs, selected = self.corrupt(tokens, generator)
+        return self.loss(model, model(inputs), tokens, selected)

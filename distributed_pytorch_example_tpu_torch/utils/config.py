@@ -14,7 +14,6 @@ import argparse
 UNSERVED = {
     "augment": "none",
     "augment_workers": 0,
-    "token_dtype": "uint16",
     "image_size": 32,
     "auto_mesh": False,
     "mesh_data": -1,
@@ -28,13 +27,11 @@ UNSERVED = {
     "pipe_schedule": "gpipe",
     "pipe_virtual": 1,
     "pipe_no_recompute": False,
-    "pad_token_id": None,
     "moe_experts": 0,
     "moe_every": 2,
     "moe_top_k": None,
     "partition": "dp",
     "remat": False,
-    "data_dir": None,
     "profile_dir": None,
     "profile_steps": "10,13",
     "telemetry_every": 0,
@@ -64,11 +61,23 @@ def add_reference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The framework flags this slice serves."""
     parser.add_argument("--model", type=str, default="mlp",
-                        help="mlp|gpt2 (resnet18|resnet50|vit-b16|bert-base "
+                        help="mlp|gpt2|bert-base (resnet18|resnet50|vit-b16 "
                         "are not ported yet)")
     parser.add_argument("--dataset", type=str, default="synthetic",
-                        help="synthetic|synthetic-tokens")
+                        help="synthetic (mlp) | synthetic-tokens | "
+                        "tokens-file (gpt2, bert-base)")
+    parser.add_argument("--data-dir", type=str, default=None,
+                        help="root of real datasets (tokens-file reads "
+                        "train.bin / val.bin there); defaults to "
+                        "$DPX_DATA_DIR or ./data")
+    parser.add_argument("--token-dtype", type=str, default="uint16",
+                        choices=("uint16", "uint32", "int32"),
+                        help="element dtype of raw .bin token files")
     parser.add_argument("--seq-len", type=int, default=512)
+    parser.add_argument("--pad-token-id", type=int, default=None,
+                        help="bert: mask keys at this token id out of "
+                        "attention (padding) and keep them out of the MLM "
+                        "loss; default: no padding mask")
     parser.add_argument("--num-classes", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--log-every", type=int, default=10,
@@ -88,8 +97,9 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
                         "or disable")
     parser.add_argument("--optimizer", type=str, default="adam",
                         choices=("adam", "adamw", "sgd", "lamb", "adafactor"),
-                        help="reference default: adam (train.py:249); lamb "
-                        "and adafactor are not ported yet")
+                        help="reference default: adam (train.py:249); "
+                        "adafactor is not ported yet, lamb not under "
+                        "--zero1 or --wire")
     parser.add_argument("--schedule", type=str, default="constant",
                         choices=("constant", "cosine", "linear"))
     parser.add_argument("--warmup-steps", type=int, default=0)

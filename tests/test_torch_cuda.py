@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
-from distributed_pytorch_example_tpu_torch.models import GPT2
+from distributed_pytorch_example_tpu_torch.models import GPT2, BertBase
 from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -41,6 +41,7 @@ from distributed_pytorch_example_tpu_torch.train import (
     build_train_step,
     make_optimizer,
 )
+from distributed_pytorch_example_tpu_torch.train.tasks import MLMTask
 
 pytestmark = pytest.mark.cuda
 
@@ -294,6 +295,128 @@ def test_flash_kernels_at_the_training_shape(card):
     tols = chip_smoke.FLASH_TOL["bfloat16"]
     for name, err in errs.items():
         assert err <= tols[name], (name, err, tols[name])
+
+
+def test_flash_kernels_at_the_bert_shape(card):
+    """BERT-base's attention as its train step calls it: B 16, N 12, S 512,
+    H 64, bf16, non-causal, with chip_smoke's key mask (padded tails on and
+    around the 128-key tile edges, one key, an all-pad row), at
+    chip_smoke's tolerances; a padded key gets zero dk and dv, the dead
+    row output 0, lse NEG_INF and zero dq."""
+    lens = chip_smoke.BERT_LENS
+    q, k, v, do, mask = chip_smoke.flash_case(
+        torch, batch=16, heads=12, kv_heads=12, seq=512, head_dim=64,
+        dtype=torch.bfloat16, masked=True, seed=512, lens=lens)
+    kw = dict(causal=False, kv_mask=mask, softmax_scale=64 ** -0.5)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+    rgrads = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    errs = chip_smoke.flash_errors(torch, (o, lse, *grads),
+                                   (ro, rlse, *rgrads))
+    tols = chip_smoke.FLASH_TOL["bfloat16"]
+    for name, err in errs.items():
+        assert err <= tols[name], (name, err, tols[name])
+    assert torch.all(o[-1] == 0) and torch.all(lse[-1] == -1e30)
+    assert torch.all(grads[0][-1] == 0)
+    for row, n in enumerate(lens):
+        assert torch.all(grads[1][row, n:] == 0), row
+        assert torch.all(grads[2][row, n:] == 0), row
+
+
+def collapsed_case(seed, batch=2, heads=2, seq=512, head_dim=64):
+    """Attention inputs whose keys, queries and values share one direction
+    (each a common vector plus 5 % noise), as in a deep post-LN encoder at
+    initialisation, and the (seq, head_dim) inputs x of the projection
+    whose weight gradient is x^T dK; bf16 on the card."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def shared(width):
+        base = torch.randn(batch, 1, heads, width, generator=gen)
+        return base + 0.05 * torch.randn(batch, seq, heads, width,
+                                         generator=gen)
+
+    q, k, v = (shared(head_dim) for _ in range(3))
+    do = torch.randn(batch, seq, heads, head_dim, generator=gen)
+    x = shared(head_dim)[0, :, 0].double()
+    return [t.to("cuda", torch.bfloat16) for t in (q, k, v, do)], x
+
+
+def test_flash_backward_keeps_dk_on_collapsed_keys(card):
+    """Where every key's v is nearly the same, dP - delta is a small
+    difference; with delta taken from the bf16 O, its rounding shifts that
+    difference by a constant per row, and x^T dK (the k projection's weight
+    gradient) came out 1.6-38x its norm off (the plain versions' math on
+    the CPU, these inputs). With delta summed from the backward's own p
+    and dp the bf16 kernels hold it within 0.15 of a float64 computation
+    (the plain versions: 3.5e-2 to 5.1e-2; plain bf16 attention 4.4e-2 to
+    6.7e-2)."""
+    (q, k, v, do), x = collapsed_case(11)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fwd0, bwd0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    flash_attention(q, k, v).backward(do)
+    assert (flash_attention_fwd.launches - fwd0,
+            flash_attention_bwd.launches - bwd0) == (1, 1)
+    q64, k64, v64, do64 = (t.detach().double().cpu() for t in (q, k, v, do))
+    s = torch.einsum("bqnh,bknh->bnqk", q64, k64) / 8
+    p = torch.softmax(s, -1)
+    dp = torch.einsum("bqnh,bknh->bnqk", do64, v64)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) / 8
+    dk = torch.einsum("bnqk,bqnh->bknh", ds, q64)
+    for b in range(2):
+        for n in range(2):
+            want = x.t() @ dk[b, :, n]
+            got = x.t() @ k.grad[b, :, n].double().cpu()
+            err = ((got - want).norm() / want.norm()).item()
+            assert err <= 0.15, (b, n, err)
+
+
+def test_bert_mlm_step_runs_the_flash_kernels(card):
+    """A 2-layer BERT (width 128, 2 heads of 64, seq 128, float32, pad id
+    0, padded tails and an all-pad row): the MLM loss and its gradients on
+    the same masked inputs on the card (K1, key mask) and on the CPU
+    (plain attention), at the GPT-2 step test's tolerances (loss 1e-4,
+    each leaf 1e-4 of max(max|g_cpu|, 1e-3)); then one train step through
+    the card's own draws launches K1 once per layer each way."""
+    kw = dict(vocab_size=256, max_len=128, model_dim=128, num_layers=2,
+              num_heads=2, mlp_dim=512, logits_mode="hidden", pad_token_id=0,
+              seed=0)
+    tokens = np.random.default_rng(0).integers(1, 256, (4, 128))
+    for row, n in enumerate((128, 77, 1, 0)):
+        tokens[row, n:] = 0
+    tokens = torch.from_numpy(tokens)
+    task = MLMTask(256, mask_token_id=103, mask_rate=0.3, pad_token_id=0)
+    inputs, selected = task.corrupt(tokens, torch.Generator().manual_seed(0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = BertBase(**kw, device=dev)
+        fwd0 = flash_attention_fwd.launches
+        bwd0 = flash_attention_bwd.launches
+        loss, _ = task.loss(model, model(inputs.to(dev)), tokens.to(dev),
+                            selected.to(dev))
+        loss.backward()
+        losses[dev] = loss.item()
+        grads[dev] = {name: p.grad.detach().cpu()
+                      for name, p in model.named_parameters()}
+        launched = (flash_attention_fwd.launches - fwd0,
+                    flash_attention_bwd.launches - bwd0)
+        assert launched == ((0, 0) if dev == "cpu" else (2, 2)), (dev,
+                                                                  launched)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4, losses
+    for name, want in grads["cpu"].items():
+        scale = max(want.abs().max().item(), 1e-3)
+        err = (grads["cuda"][name] - want).abs().max().item()
+        assert err <= 1e-4 * scale, (name, err, scale)
+    model = BertBase(**kw, device="cuda")
+    state = TrainState(step=0, model=model, optimizer=make_optimizer(
+        model.parameters(), "lamb", 1e-3))
+    fwd0, bwd0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    metrics = build_train_step(task)(state, {"tokens": tokens.cuda()})
+    assert np.isfinite(float(metrics["loss"]))
+    assert (flash_attention_fwd.launches - fwd0,
+            flash_attention_bwd.launches - bwd0) == (2, 2)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

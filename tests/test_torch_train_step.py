@@ -395,6 +395,6 @@ def test_refused_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(ClassificationTask(), sentinels=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(model.parameters(), "lamb")
+        make_optimizer(model.parameters(), "adafactor")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPT2(**KW, dropout_rate=0.1, device="cpu")
