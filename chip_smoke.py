@@ -41,8 +41,9 @@ last line:
    and takes the same first-step gradients, leaf by leaf; prints step ms,
    tokens/s and peak memory;
 7. train cli — ``python -m distributed_pytorch_example_tpu_torch.train``
-   for GPT-2 (bf16, 16 x 1024, 4 steps) and at its defaults (SimpleNet, one
-   epoch); both must log "Training completed";
+   for GPT-2 (bf16, 16 x 1024, 4 steps), at its defaults (SimpleNet, one
+   epoch) and for ResNet-18 on 32 x 32 synthetic images with the CIFAR
+   augmentation; each must log "Training completed";
 8. zero1  — the same GPT-2 training at world 2: two processes on the card
    (``REPLICAS``, ``PROCESS_ID``, ``MASTER_ADDR``, ``MASTER_PORT``; gloo,
    with the gradient buckets carried by K3 through CUDA IPC memory), 8 rows
@@ -83,9 +84,27 @@ last line:
    follow plain attention's; then the CLI with ``--optimizer lamb`` (4
    steps) must log "Training completed". Prints step ms, tokens/s and peak
    memory beside the card's name and power limit.
+11. vision — (a) ResNet-50 and (b) ViT-B/16 at full width and depth
+   (224 x 224, 1000 classes), bf16 compute with float32 parameters, Adam
+   at lr 1e-3, batches of 128 and 64 synthetic images through
+   ``Trainer.fit``: 10 steps and one validation batch each. Checks every
+   loss is finite, no K1 launch (ViT's 197 tokens take the plain path, as
+   in JAX), and ResNet's running statistics moved and are finite; prints
+   step ms, images/s, peak memory, forward FLOPs per image from the conv
+   and dense shapes and the bf16 dense peak's share, and whether
+   ``cudnn.benchmark`` was on. (c) The first step's gradients against a
+   float32 step on the card, per leaf (phase 10's bound, with autocast as
+   the second bf16 rounding), and the
+   float32 model's eval logits on the card against the CPU's
+   (``VISION_FWD_TOL``). (d) The space-to-depth stem equals the plain
+   stem on the card. (e) A NaN pixel: the skipped step leaves running
+   statistics, parameters and moments bit-equal and reports bad_step 1.
+   (f) The CLI on ResNet-18 at 32 x 32 logs "Training completed". Then,
+   with no check, one ViT-B/16 attention layer timed through the plain
+   path, K1's lane-padded path and SDPA.
 
-Each main path (serve, train, zero1, checkpoint, bert) runs with every
-launch count set to 0 just before it and read just after.
+Each main path (serve, train, zero1, checkpoint, bert, vision) runs with
+every launch count set to 0 just before it and read just after.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1285,6 +1304,10 @@ def train_cli():
          "1024", "--dtype", "bfloat16", "--batch-size", "16", "--epochs", "1",
          "--num-samples", "64", "--checkpoint-dir", ""],
         ["--epochs", "1", "--checkpoint-dir", ""],
+        ["--model", "resnet18", "--dataset", "synthetic-image",
+         "--image-size", "32", "--augment", "cifar", "--epochs", "1",
+         "--num-samples", "256", "--batch-size", "64",
+         "--checkpoint-dir", ""],
     )
     for args in runs:
         cmd = [sys.executable, "-m",
@@ -2052,6 +2075,380 @@ def bert(torch, smi_line):
     return fwd, bwd
 
 
+# ---------------------------------------------------------------------------
+# 11. vision: ResNet-50 and ViT-B/16 training with BatchNorm state
+# ---------------------------------------------------------------------------
+
+VISION_SIZE, VISION_CLASSES = 224, 1000
+VISION_BATCH = {"resnet50": 128, "vit-b16": 64}
+# First-step gradients, bf16 compute against a float32 step on the same
+# weights and batch, per leaf ||g - g_f32|| / ||g_f32||, held as phase 10
+# holds BERT's: within GRAD_TOL, or within BERT_GRAD_SLACK x the gap of a
+# second bf16 rounding of the same step (torch.autocast over the float32
+# model: convolutions and matmuls in bf16, the head too). ResNet at
+# initialisation is ill-conditioned that way: its BatchNorm biases and
+# scales sum many terms that nearly cancel, so any bf16 rounding of the
+# step leaves them tenths of their norm off float32 (this phase prints
+# the port's gap beside autocast's); a wrong backward term puts a leaf
+# at O(1), also where autocast's gap is small. A leaf
+# whose float32 gradient is exactly zero (the convolutions behind a
+# zero-initialised BatchNorm scale, at the first step) must be exactly
+# zero in bf16 too. ViT's attn.k.bias is left out (zero in exact
+# arithmetic, as in phase 6).
+# float32 eval logits, the card (TF32 off: cuDNN's float32 convolutions,
+# full-precision matmuls) against the same model on the CPU, both float32
+# with other summation orders: max |d| <= this x max |logit|
+VISION_FWD_TOL = 1e-3
+# the space-to-depth stem against the plain 7x7/2 stem on the card,
+# float32 (TF32 off), the same sums regrouped: max |d| <= this x max |out|
+S2D_TOL = 1e-5
+
+
+def forward_flops(torch, model, size):
+    """Multiply-adds x 2 of one image's forward at ``size`` x ``size``,
+    from the layers' shapes: a transformer's patch conv, every dense
+    layer at its token count and the two attention products (2 x 2 S^2 D
+    a layer); a ResNet's convolutions from the output shapes of a batch-1
+    eval forward (hooks) and its head."""
+    head = 2 * model.head.in_features * model.head.out_features
+    encoder = getattr(model, "encoder", None)
+    if encoder is not None:
+        p, dim = model.patch_size, model.model_dim
+        seq = model.pos_embed.shape[1]
+        total = 2 * (size // p) ** 2 * dim * 3 * p * p + head
+        for layer in encoder.layers:
+            for lin in (layer.attn.q, layer.attn.k, layer.attn.v,
+                        layer.attn.o, layer.mlp.up, layer.mlp.down):
+                total += 2 * seq * lin.in_features * lin.out_features
+            total += 4 * seq * seq * dim
+        return total
+    flops = []
+
+    def hook(module, args, out):
+        kh, kw = module.kernel_size
+        flops.append(2 * out.numel() * module.in_channels * kh * kw)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, size, size, 3, device=model.device))
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(flops) + head
+
+
+def vision_model(torch, name, dtype, seed=0, **kw):
+    from distributed_pytorch_example_tpu_torch.models import get_model
+
+    if name.startswith("vit"):
+        kw["image_size"] = VISION_SIZE
+    return get_model(name, num_classes=VISION_CLASSES, dtype=dtype,
+                     device="cuda", seed=seed, **kw)
+
+
+def vision_data(name):
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticImageDataset,
+    )
+
+    batch = VISION_BATCH[name]
+    kw = dict(image_size=VISION_SIZE, num_classes=VISION_CLASSES)
+    return (SyntheticImageDataset(TRAIN_STEPS * batch, seed=0, **kw),
+            SyntheticImageDataset(batch, seed=1, **kw), batch)
+
+
+def first_batch(torch, train_ds, batch):
+    """The first training batch fit_run's loader hands the step."""
+    from distributed_pytorch_example_tpu_torch.data import DeviceLoader
+
+    loader = DeviceLoader(train_ds, batch, device="cuda", seed=0, prefetch=0)
+    loader.set_epoch(0)
+    return next(iter(loader))
+
+
+def bn_stats(torch, model):
+    from distributed_pytorch_example_tpu_torch.models.batchnorm import (
+        running_stats,
+    )
+
+    return running_stats(model)
+
+
+def vision_fit(torch, name, smi_line):
+    """(a) / (b): bf16 training through Trainer.fit; returns the first
+    step's gradients, the train set and the per-step ms."""
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        ClassificationTask,
+    )
+
+    train_ds, val_ds, batch = vision_data(name)
+    model = vision_model(torch, name, torch.bfloat16)
+    flops = forward_flops(torch, model, VISION_SIZE)
+    reset_counts()
+    losses, step_ms, history, peak, grads = fit_run(
+        torch, model, ClassificationTask(), train_ds, val_ds, batch)
+    torch.cuda.synchronize()
+    launched = flash_attention_fwd.launches + flash_attention_bwd.launches
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"vision {name}: losses {losses}")
+    check(math.isfinite(history[0]["val_loss"]),
+          f"vision {name}: validation loss {history[0]['val_loss']}")
+    # ViT's 197 tokens take the plain attention path (use_flash=None), as
+    # XLA's does in the JAX package; ResNet has no attention
+    check(launched == 0, f"vision {name}: K1 launched {launched} times")
+    stats = bn_stats(torch, model)
+    if name.startswith("resnet"):
+        init = [torch.zeros_like(t) if i % 2 == 0 else torch.ones_like(t)
+                for i, t in enumerate(stats)]
+        check(stats and all(bool(torch.isfinite(t).all()) for t in stats),
+              f"vision {name}: running statistics not finite")
+        moved = sum(not torch.equal(t, i) for t, i in zip(stats, init))
+        check(moved == len(stats), f"vision {name}: only {moved} of "
+                                   f"{len(stats)} running statistics moved")
+    median = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    images = batch / median * 1e3
+    share = images * 3 * flops / _BF16_PEAK
+    say("vision", f"{smi_line}: {name} bf16, Adam, batch {batch} x "
+                  f"{VISION_SIZE}^2, {VISION_CLASSES} classes, "
+                  f"{sum(p.numel() for p in model.parameters()):,} "
+                  f"parameters: {TRAIN_STEPS} steps, losses "
+                  f"{[round(x, 4) for x in losses]}, val loss "
+                  f"{history[0]['val_loss']:.4f}; step ms "
+                  f"{[round(x, 2) for x in step_ms]} (median of steps 3+ "
+                  f"{median:.2f} ms = {images:.1f} images/s); peak memory "
+                  f"{peak / 2**30:.2f} GiB; forward {flops / 1e9:.3f} "
+                  f"GFLOP/image (conv and dense shapes), x3 for a step: "
+                  f"{share:.3f} of the bf16 dense peak "
+                  f"({_BF16_PEAK / 1e12:.0f} TFLOP/s); cudnn.benchmark "
+                  f"{torch.backends.cudnn.benchmark}; "
+                  + (f"running statistics {len(stats)} tensors, finite and "
+                     "moved" if stats else "no BatchNorm"))
+    return grads, train_ds, batch
+
+
+def vision_against_float32(torch, name, grads, train_ds, batch):
+    """(c): the first step in float32 on the card against the bf16 run's,
+    per leaf; then the float32 model's eval logits on the card against
+    the same model's on the CPU."""
+    import copy
+
+    import numpy as np
+
+    from distributed_pytorch_example_tpu_torch.train import (
+        ClassificationTask,
+        TrainState,
+        build_train_step,
+        make_optimizer,
+    )
+
+    model = vision_model(torch, name, torch.float32)
+    batch_data = first_batch(torch, train_ds, batch)
+    model.train()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        logits = model(batch_data["x"])
+    torch.nn.functional.cross_entropy(logits.float(),
+                                      batch_data["y"].long()).backward()
+    autocast = {n: p.grad.detach().to("cpu", copy=True)
+                for n, p in model.named_parameters() if p.grad is not None}
+    del logits
+    state = TrainState(step=0, model=model, optimizer=make_optimizer(
+        model.parameters(), "adam", 1e-3))
+    build_train_step(ClassificationTask())(state, batch_data)
+    ref = {n: p.grad.detach().to("cpu", copy=True)
+           for n, p in model.named_parameters() if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    gaps = gradient_gaps(grads, ref)
+    second = gradient_gaps(autocast, ref)
+    zero = [n for n, g in ref.items() if not bool(g.any())
+            and not n.endswith("attn.k.bias")]
+    check(all(not bool(grads[n].any()) for n in zero),
+          f"vision {name}: a leaf with a zero float32 gradient is not zero "
+          "in bf16")
+    live = {n: g for n, g in gaps.items() if n not in zero}
+    bound = {n: max(GRAD_TOL, BERT_GRAD_SLACK * second[n]) for n in live}
+    worst = max(live, key=lambda n: live[n] / bound[n])
+    over = {n: g for n, g in live.items()
+            if not (math.isfinite(g) and g <= bound[n])}
+    check(not over,
+          f"vision {name}: first-step gradients off the float32 step beyond "
+          f"max({GRAD_TOL}, {BERT_GRAD_SLACK} x autocast's gap): "
+          + ", ".join(f"{n} {g:.3e} (autocast {second[n]:.3e})"
+                      for n, g in over.items()))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, VISION_SIZE, VISION_SIZE, 3), dtype=np.float32))
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    with torch.no_grad():
+        got = model(x.cuda()).cpu()
+        want = cpu_model(x)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= VISION_FWD_TOL * scale,
+          f"vision {name}: float32 eval logits card vs CPU off by {err:.3e} "
+          f"> {VISION_FWD_TOL} x {scale:.3e}")
+    worst_abs = max(live, key=live.get)
+    say("vision", f"{name}: first-step gradients bf16 vs a float32 step on "
+                  f"the card, ||g - g_f32|| / ||g_f32|| over {len(live)} "
+                  f"leaves: worst {live[worst_abs]:.3e} ({worst_abs}; "
+                  f"autocast's {second[worst_abs]:.3e}), nearest its bound "
+                  f"{live[worst]:.3e} ({worst}; bound {bound[worst]:.3e}); "
+                  f"{len(zero)} leaves exactly zero in both; float32 eval logits (after that step) card vs CPU "
+                  f"at batch 4: max |d| {err:.3e} of max |logit| "
+                  f"{scale:.3e} (tol {VISION_FWD_TOL} x)")
+    del model, cpu_model, state
+    torch.cuda.empty_cache()
+
+
+def vision_s2d(torch):
+    """(d): the space-to-depth stem against the plain 7x7/2 stem."""
+    s2d = vision_model(torch, "resnet50", torch.float32,
+                       space_to_depth_stem=True)
+    plain = vision_model(torch, "resnet50", torch.float32)
+    with torch.no_grad():
+        plain.stem_conv.weight.copy_(
+            s2d.stem_conv_kernel.permute(3, 2, 0, 1))
+        x = torch.randn(4, 3, VISION_SIZE, VISION_SIZE, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+        x = x.contiguous(memory_format=torch.channels_last)
+        got, want = s2d._stem_s2d(x), plain.stem_conv(x)
+    err = (got - want).abs().max().item()
+    check(got.shape == want.shape and err <= S2D_TOL * want.abs().max().item(),
+          f"vision: s2d stem {tuple(got.shape)} off the plain stem "
+          f"{tuple(want.shape)} by {err:.3e}")
+    say("vision", f"space-to-depth stem = plain 7x7/2 stem at "
+                  f"{VISION_SIZE}: {tuple(got.shape)}, max |d| {err:.3e} "
+                  f"(tol {S2D_TOL} x max |out|)")
+
+
+def vision_poisoned(torch):
+    """(e): a NaN pixel on the card: the step is skipped and the running
+    statistics, parameters and moments stay bit-equal."""
+    from distributed_pytorch_example_tpu_torch.train import (
+        ClassificationTask,
+        TrainState,
+        build_train_step,
+        make_optimizer,
+    )
+
+    model = vision_model(torch, "resnet50", torch.bfloat16)
+    optimizer = make_optimizer(model.parameters(), "adam", 1e-3)
+    state = TrainState(step=0, model=model, optimizer=optimizer)
+    step = build_train_step(ClassificationTask())
+    gen = torch.Generator("cuda").manual_seed(7)
+    batch = {"x": torch.randn(16, VISION_SIZE, VISION_SIZE, 3, device="cuda",
+                              generator=gen),
+             "y": torch.randint(0, VISION_CLASSES, (16,), device="cuda",
+                                generator=gen)}
+    step(state, batch)
+
+    def snapshot():
+        moments = [t for st in optimizer.optimizer.state.values()
+                   for t in st.values() if torch.is_tensor(t)]
+        return [t.clone() for t in (*model.state_dict().values(), *moments)]
+
+    before = snapshot()
+    stats_before = [t.clone() for t in bn_stats(torch, model)]
+    poisoned = {**batch, "x": batch["x"].clone()}
+    poisoned["x"][3, VISION_SIZE // 2, VISION_SIZE // 4, 1] = float("nan")
+    bad = float(step(state, poisoned)["bad_step"])
+    after = snapshot()
+    check(bad == 1.0, f"vision: poisoned step bad_step {bad}")
+    stats_after = bn_stats(torch, model)
+    check(all(torch.equal(a, b) for a, b in zip(stats_after, stats_before)),
+          "vision: the skipped step changed the running statistics")
+    check(len(after) == len(before)
+          and all(torch.equal(a, b) for a, b in zip(after, before)),
+          "vision: the skipped step changed parameters or moments")
+    say("vision", f"poisoned step (NaN in one pixel, ResNet-50 bf16, batch "
+                  f"16): bad_step {bad:.0f}; {len(stats_after)} running "
+                  f"statistics, {len(after)} parameter / buffer / moment "
+                  "tensors bit-equal to before the step")
+
+
+def vision_attention_timing(torch):
+    """Informational, no check: one ViT-B/16 attention layer (64 x 197 x
+    12 x 64, bf16, forward + backward) through the plain path (the port's
+    and JAX's choice at 197 tokens), K1's explicit lane-padded path and
+    SDPA."""
+    import torch.nn.functional as F
+
+    from distributed_pytorch_example_tpu_torch.ops import attention
+
+    gen = torch.Generator("cuda").manual_seed(8)
+    shape = (64, 197, 12, 64)
+    q, k, v = (torch.randn(shape, device="cuda", dtype=torch.bfloat16,
+                           generator=gen).requires_grad_() for _ in range(3))
+    do = torch.randn(shape, device="cuda", dtype=torch.bfloat16,
+                     generator=gen)
+    paths = {
+        "plain": lambda: attention.dot_product_attention(q, k, v,
+                                                         use_flash=False),
+        "K1 lane-padded": lambda: attention.dot_product_attention(
+            q, k, v, use_flash=True),
+        "SDPA": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2)).transpose(1, 2),
+    }
+    out = {}
+    for label, fn in paths.items():
+        def run():
+            fn().backward(do)
+        for _ in range(3):
+            run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            run()
+        end.record()
+        end.synchronize()
+        out[label] = round(start.elapsed_time(end) / 20, 4)
+    say("vision", f"ViT-B/16 attention layer {shape} bf16, forward + "
+                  f"backward ms (informational; the dispatch is unchanged): "
+                  f"{json.dumps(out)}")
+
+
+def vision_cli():
+    """(f): the training CLI on ResNet-18 at 32 x 32."""
+    cmd = [sys.executable, "-m", "distributed_pytorch_example_tpu_torch.train",
+           "--model", "resnet18", "--dataset", "synthetic-image",
+           "--image-size", "32", "--dtype", "bfloat16", "--epochs", "1",
+           "--num-samples", "512", "--batch-size", "128",
+           "--checkpoint-dir", ""]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0 and "Training completed" in log,
+          f"vision CLI exit {proc.returncode}: {log[-3000:]}")
+    tail = [line.split("] ", 1)[-1] for line in log.splitlines()
+            if "Throughput" in line or "Training completed" in line
+            or "Val Loss" in line]
+    say("vision", f"{' '.join(cmd[1:])} in {time.perf_counter() - t0:.1f} "
+                  f"s: {tail}")
+
+
+def vision(torch, smi_line):
+    for name in ("resnet50", "vit-b16"):
+        grads, train_ds, batch = vision_fit(torch, name, smi_line)
+        vision_against_float32(torch, name, grads, train_ds, batch)
+        del grads, train_ds
+        torch.cuda.empty_cache()
+    vision_s2d(torch)
+    vision_poisoned(torch)
+    vision_cli()
+    vision_attention_timing(torch)
+
+
 def free_port():
     import socket
 
@@ -2096,6 +2493,8 @@ def main() -> int:
         phase = "bert"
         k1_fwd["bert"]["launches"], k1_bwd["bert"]["launches"] = bert(
             torch, smi_line)
+        phase = "vision"
+        vision(torch, smi_line)
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)

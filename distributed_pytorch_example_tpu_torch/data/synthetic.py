@@ -2,7 +2,8 @@
 data/synthetic.py).
 
 The reference's ``SyntheticDataset`` of Gaussian features and uniform
-integer labels, and uniform token sequences over the model's vocabulary
+integer labels, Gaussian NHWC images with uniform labels (the vision
+configs), and uniform token sequences over the model's vocabulary
 (GPT-2's 50257, BERT's 30522). Each draws from the
 same ``np.random.default_rng(seed)`` stream as the JAX package's, so the
 samples are identical element for element. Map-style, plus a vectorized
@@ -54,6 +55,32 @@ class SyntheticClassificationDataset(_ArrayDataset):
             {
                 "x": rng.standard_normal((num_samples, input_size), dtype=dtype),
                 "y": rng.integers(0, num_classes, (num_samples,), dtype=np.int32),
+            }
+        )
+        self.num_classes = num_classes
+
+
+class SyntheticImageDataset(_ArrayDataset):
+    """Gaussian NHWC images + uniform labels for the vision configs:
+    ``x`` (num_samples, image_size, image_size, channels), ``y`` int32."""
+
+    def __init__(
+        self,
+        num_samples: int = 10000,
+        image_size: int = 32,
+        channels: int = 3,
+        num_classes: int = 10,
+        seed: int = 0,
+        dtype=np.float32,
+    ):
+        rng = np.random.default_rng(seed)
+        super().__init__(
+            {
+                "x": rng.standard_normal(
+                    (num_samples, image_size, image_size, channels),
+                    dtype=dtype),
+                "y": rng.integers(0, num_classes, (num_samples,),
+                                  dtype=np.int32),
             }
         )
         self.num_classes = num_classes

@@ -46,11 +46,15 @@ def _not_in_slice(what: str) -> NotImplementedError:
     )
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
+                  fan_in: Optional[int] = None) -> None:
     """flax's ``lecun_normal`` (truncated normal, variance 1/fan_in) for a
-    torch ``Linear`` weight (out, in), drawn on the CPU from ``generator``
-    and copied in, so the weights do not depend on the device."""
-    fan_in = weight.shape[1]
+    torch ``Linear`` weight (out, in) or ``Conv2d`` weight (out, in, h, w):
+    fan_in defaults to the product of every dimension after the first.
+    Drawn on the CPU from ``generator`` and copied in, so the weights do
+    not depend on the device."""
+    if fan_in is None:
+        fan_in = math.prod(weight.shape[1:])
     # 0.8796... = std of a unit normal truncated to [-2, 2]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     cpu = torch.empty(weight.shape, dtype=torch.float32)

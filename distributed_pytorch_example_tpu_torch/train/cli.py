@@ -15,6 +15,12 @@ backward. ``--dataset tokens-file`` reads a real corpus from
 ``<--data-dir or $DPX_DATA_DIR or ./data>/train.bin`` and ``val.bin``
 (raw ``--token-dtype``, memory-mapped, checked against a ``DPX-CRC1``
 sidecar when there is one).
+``--model resnet18|resnet50|vit-b16`` trains an image classifier on
+``--dataset synthetic-image`` (Gaussian ``--image-size`` squares),
+``cifar10`` (the pickle batches under the data dir) or ``digits``
+(scikit-learn's bundled set), with ``--augment cifar|crop|imagenet`` on
+``--augment-workers`` threads; ``--num-classes`` at its default follows
+the dataset's label space, and a smaller value is refused.
 
 More than one process (``REPLICAS`` > 1, see runtime/distributed.py)
 gives data parallelism: each process takes its shard of the global batch
@@ -43,11 +49,18 @@ from typing import List, Optional
 import torch
 
 from distributed_pytorch_example_tpu_torch.data import (
+    AugmentedDataset,
     DeviceLoader,
     SyntheticClassificationDataset,
+    SyntheticImageDataset,
     SyntheticTokenDataset,
+    load_cifar10,
+    load_digits,
     load_token_file,
+    pad_crop_flip,
+    random_resized_crop_flip,
 )
+from distributed_pytorch_example_tpu_torch.data.vision import data_root
 from distributed_pytorch_example_tpu_torch.models import get_model
 from distributed_pytorch_example_tpu_torch.parallel import (
     WireConfig,
@@ -88,9 +101,14 @@ from distributed_pytorch_example_tpu_torch.utils.config import (
 logger = get_logger(__name__)
 
 _TOKENS = ("synthetic-tokens", "tokens-file")
-_DATASETS = {"mlp": ("synthetic",), "gpt2": _TOKENS, "bert-base": _TOKENS}
+# the JAX CLI's image datasets (its image-shards waits for ROADMAP item 13)
+_IMAGES = ("synthetic-image", "cifar10-synthetic", "cifar10", "digits")
+_VISION = ("resnet18", "resnet50", "vit-b16")
+_DATASETS = {"mlp": ("synthetic",), "gpt2": _TOKENS, "bert-base": _TOKENS,
+             **dict.fromkeys(_VISION, _IMAGES)}
 _VOCAB = {"gpt2": 50257, "bert-base": 30522}  # JAX train.py:46-56
 _MAX_SEQ = {"gpt2": 1024, "bert-base": 512}
+_LM = tuple(_MAX_SEQ)
 MASK_TOKEN_ID = 103  # BERT's [MASK] (JAX train.py:101-106)
 
 
@@ -109,22 +127,53 @@ def build_dataset(args, num_samples: int, seed: int, train: bool = True):
         return SyntheticClassificationDataset(
             num_samples=num_samples, num_classes=args.num_classes, seed=seed
         )
+    if args.dataset in ("synthetic-image", "cifar10-synthetic"):
+        return SyntheticImageDataset(
+            num_samples=num_samples, image_size=args.image_size,
+            num_classes=args.num_classes, seed=seed)
+    if args.dataset == "cifar10":
+        return load_cifar10(train=train, data_dir=args.data_dir)
+    if args.dataset == "digits":
+        return load_digits(train=train)
     if args.dataset == "tokens-file":
-        root = args.data_dir or os.environ.get("DPX_DATA_DIR", "./data")
         return load_token_file(
-            os.path.join(root, "train.bin" if train else "val.bin"),
+            os.path.join(data_root(args.data_dir),
+                         "train.bin" if train else "val.bin"),
             seq_len=args.seq_len, dtype=args.token_dtype)
     return SyntheticTokenDataset(num_samples=num_samples, seq_len=args.seq_len,
                                  vocab_size=_VOCAB[args.model], seed=seed)
 
 
-def build_model(args, device: torch.device):
+def augment(args, train_ds, global_batch: int):
+    """``train_ds`` under ``--augment`` (the JAX CLI's recipes, seeded by
+    ``--seed``), or as it is."""
+    if args.augment == "none":
+        return train_ds
+    if args.augment == "imagenet":
+        transform = random_resized_crop_flip(size=args.image_size,
+                                             seed=args.seed)
+    else:
+        transform = pad_crop_flip(flip=args.augment == "cifar",
+                                  seed=args.seed)
+    workers = args.augment_workers or min(max(1, global_batch // 32),
+                                          os.cpu_count() or 1)
+    return AugmentedDataset(train_ds, transform, workers=workers,
+                            seed=args.seed)
+
+
+def build_model(args, device: torch.device,
+                image_size: Optional[int] = None):
+    """The model of ``--model``; ``image_size`` (ViT's position table)
+    defaults to ``--image-size``."""
     kw = dict(dtype=torch.bfloat16 if args.dtype == "bfloat16"
               else torch.float32, device=device, seed=args.seed)
-    if args.model == "mlp":
+    if args.model in ("mlp",) + _VISION:
         kw["num_classes"] = args.num_classes
-    else:
+    if args.model in ("vit-b16", "gpt2", "bert-base"):
         kw["use_flash"] = None if args.flash == "auto" else args.flash == "on"
+    if args.model == "vit-b16":
+        kw["image_size"] = image_size or args.image_size
+    if args.model in _LM:
         kw["logits_mode"] = "hidden" if args.lm_loss == "fused" else "full"
     if args.pad_token_id is not None:
         kw["pad_token_id"] = args.pad_token_id
@@ -132,7 +181,7 @@ def build_model(args, device: torch.device):
 
 
 def build_task(args, model):
-    if args.model == "mlp":
+    if args.dataset == "synthetic" or args.dataset in _IMAGES:
         return ClassificationTask()
     if args.model == "bert-base":
         return MLMTask(model.vocab_size, mask_token_id=MASK_TOKEN_ID,
@@ -162,6 +211,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error("--optimizer lamb under --zero1 or --wire is not "
                      "ported yet: its per-leaf norms span every rank's tile "
                      "(ROADMAP.md queue 1, item 7)")
+    if args.augment != "none" and args.dataset not in _IMAGES:
+        parser.error(f"--augment only applies to image datasets, not "
+                     f"{args.dataset!r}")
     if args.pad_token_id is not None and args.model != "bert-base":
         parser.error(f"--pad-token-id is only supported for bert models, "
                      f"not {args.model!r}")
@@ -191,7 +243,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     train_ds = build_dataset(args, args.num_samples, seed=args.seed)
     val_ds = build_dataset(args, max(args.num_samples // 10, global_batch),
                            seed=args.seed + 1, train=False)
-    model = build_model(args, device)
+    image_size = None
+    if args.dataset in _IMAGES:
+        image_size = (args.image_size if args.augment == "imagenet"
+                      else train_ds[0]["x"].shape[0])
+    train_ds = augment(args, train_ds, global_batch)
+    # a real dataset knows its label space: the flag's default must not
+    # size a head too small for it (the JAX CLI's rule)
+    ds_classes = getattr(train_ds, "num_classes", 0)
+    if ds_classes and ds_classes != args.num_classes:
+        if args.num_classes == parser.get_default("num_classes"):
+            logger.info("Using num_classes=%d from the dataset (flag "
+                        "default %d)", ds_classes, args.num_classes)
+            args.num_classes = ds_classes
+        elif ds_classes > args.num_classes:
+            parser.error(f"--num-classes {args.num_classes} < dataset "
+                         f"label space {ds_classes}")
+    model = build_model(args, device, image_size)
     task = build_task(args, model)
     train_loader = DeviceLoader(train_ds, global_batch, device=device,
                                 shuffle=True, seed=args.seed)

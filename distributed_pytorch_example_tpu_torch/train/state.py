@@ -1,7 +1,8 @@
 """Train state (the JAX package's train/state.py).
 
-What a step mutates: the step count, the model (its float32 parameters)
-and the optimizer (moments and schedule position). JAX carries them in
+What a step mutates: the step count, the model (its float32 parameters
+and its BatchNorm running statistics) and the optimizer (moments and
+schedule position). JAX carries them in
 one immutable pytree that the compiled step donates; here the model and
 the optimizer update in place, and the state object only names them
 together.
@@ -14,7 +15,9 @@ makes of the JAX package's ``TrainState`` — the checkpoint's ``state``:
 - ``params``: the flax param tree (``interop.params_to_flax``);
 - ``opt_state``: the optax tree of the same optimizer configuration
   (``Optimizer.state_tree``);
-- ``model_state``: ``{}`` (GPT-2 and SimpleNet hold no batch statistics);
+- ``model_state``: the BatchNorm running statistics,
+  ``{"batch_stats": {...}}`` (``interop.model_state_to_flax``), or ``{}``
+  for a model with none (SimpleNet, GPT-2, BERT, ViT);
 - ``rng``: the raw uint32 key data, shape (2,). The port draws no
   randomness from it; it starts as ``key_data(key(seed))`` and carries
   whatever a loaded checkpoint held, so a JAX run resumed here and saved
@@ -65,7 +68,7 @@ def state_tree(state: TrainState, layout: Optional[StateLayout] = None
         "step": np.asarray(state.step, dtype=np.int32),
         "params": interop.params_to_flax(state.model),
         "opt_state": state.optimizer.state_tree(layout),
-        "model_state": {},
+        "model_state": interop.model_state_to_flax(state.model),
         "rng": np.array(state.rng, dtype=np.uint32),
     }
 
@@ -105,17 +108,16 @@ def train_state_from_flax(state: TrainState, tree: dict,
     if layout is None:
         layout = StateLayout(state.model)
     _expect_keys(tree, STATE_KEYS, "state")
-    if tree["model_state"]:
-        raise NotImplementedError(
-            "the checkpoint holds model_state (batch statistics); no "
-            "ported model keeps any yet (ROADMAP.md queue 1, item 6)")
     rng = np.asarray(tree["rng"])
     if rng.dtype != np.uint32 or rng.shape != (2,):
         raise ValueError(f"checkpoint rng: {rng.dtype}{rng.shape}, want "
                          "uint32 key data of shape (2,)")
     state.optimizer.load_state_tree(tree["opt_state"], layout,
                                     check_only=True)
+    interop.model_state_from_flax(state.model, tree["model_state"],
+                                  check_only=True)
     interop.params_from_flax(state.model, tree["params"])
+    interop.model_state_from_flax(state.model, tree["model_state"])
     layout.refresh()
     state.optimizer.load_state_tree(tree["opt_state"], layout)
     state.step = int(tree["step"])

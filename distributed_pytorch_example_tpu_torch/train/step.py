@@ -1,9 +1,19 @@
 """The train and eval steps (the JAX package's train/step.py).
 
 A train step is forward, loss, backward, then the gradient sync, then the
-optimizer update. Local gradients are d(local mean loss), so their
-cross-process mean is the gradient of the global mean loss (the
-reference's DDP semantics, train.py:233,138).
+optimizer update. Local gradients are d(local loss); their cross-process
+mean is the gradient of the mean of the processes' losses. For a task
+whose loss is a mean over a fixed number of rows or positions per process
+(SimpleNet, GPT-2, the vision models: the sampler's equal shards), that
+is the global mean loss, the reference's DDP semantics (train.py:233,138)
+and the loss JAX's replicated step differentiates on the global batch.
+A task that scores a data-dependent subset (the masked LM:
+``compute_sums`` returns its loss sum, its metric sums and its count)
+would weigh a position on rank r by 1 / (world * count_r) that way; the
+replicated step instead all-reduces the count before the backward pass
+and scales the local sums by world / (global count), so the mean over
+processes is sum / global count, as in JAX. Its metrics and the eval
+step's follow the same rule.
 
 Two sync paths, chosen as the JAX step chooses between its automatic and
 manual data modes:
@@ -21,13 +31,25 @@ manual data modes:
 ``grad_accum_steps = N`` runs N microbatches (contiguous slices of the
 local batch) before the one sync, accumulating float32 gradients (the
 parameters are float32, so their ``.grad`` is); metrics are the mean over
-microbatches.
+microbatches. The manual path is JAX's manual path: per-shard means, so
+a masked LM's loss there is the mean of the processes' per-shard means.
+
+BatchNorm state (``models/batchnorm.py``), as JAX computes it: the
+replicated path at world > 1 runs the forward under
+``global_batch_stats``, so the statistics are the global batch's and the
+running statistics agree on every process; the manual path takes
+per-shard statistics (threaded from microbatch to microbatch) and, after
+the backward, the cross-process mean of the running statistics (JAX's
+``_pmean_inexact``).
 
 The non-finite skip (JAX's graft-armor predication): when any element
 of the synced gradients is NaN or Inf (their non-finite count, summed
 across ranks under the manual path, is above 0), the update is skipped,
-so parameters, moments and the schedule position stay as they were, and
-``bad_step`` reports 1.0. A finite gradient whose norm overflows float32
+so parameters, moments, the schedule position and the BatchNorm running
+statistics stay as they were (the statistics are copied before the
+forward, which updates them in place, and copied back on a skip: JAX's
+``skip_update`` returns the old model state), and ``bad_step`` reports
+1.0. A finite gradient whose norm overflows float32
 is applied, as in JAX. A finite global norm means no element is NaN or
 Inf, so the count is taken only when the norm is not finite (every rank
 sees the same norm, so every rank takes the same branch). JAX takes that
@@ -55,6 +77,10 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from distributed_pytorch_example_tpu_torch.models.batchnorm import (
+    global_batch_stats,
+    running_stats,
+)
 from distributed_pytorch_example_tpu_torch.models.transformer import (
     _not_in_slice,
 )
@@ -86,19 +112,29 @@ def _task_kwargs(task, seed: int, kind: int, index: int, batch) -> dict:
             torch.Generator(device=device).manual_seed(int(mixed) >> 1)}
 
 
+def _flat(tensors):
+    """The tensors' elements in one new 1-D tensor, in order."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+@torch.no_grad()
+def _unflat(flat: torch.Tensor, tensors) -> None:
+    """Copy :func:`_flat`'s layout back into the tensors, in place."""
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def _all_reduce_mean_grads(grads) -> None:
     """One flat all-reduce over every gradient, then / world, in place."""
     world = distributed.process_count()
     if world == 1 or not grads:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat = _flat(grads)
     distributed.all_reduce_sum_(flat)
     flat.div_(world)
-    offset = 0
-    for g in grads:
-        n = g.numel()
-        g.copy_(flat[offset:offset + n].view_as(g))
-        offset += n
+    _unflat(flat, grads)
 
 
 def _mean_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -124,19 +160,37 @@ def _microbatches(batch, n: int):
              for k, x in batch.items()} for i in range(n)]
 
 
-def _backward(task, model, batch, n: int,
-              task_kw: dict) -> Dict[str, torch.Tensor]:
+def _task_loss(task, model, batch, *, train: bool, task_kw: dict,
+               global_count: bool):
+    """``(loss, metrics)`` of one (micro)batch. With ``global_count``, a
+    task with ``compute_sums`` is normalised by the count over every
+    process (one all-reduce of the count, before the backward pass): the
+    local loss is sum * world / global count, so the cross-process mean
+    of losses, metrics and gradients is sum / global count."""
+    if not (global_count and hasattr(task, "compute_sums")):
+        return task.compute_loss(model, batch, train=train, **task_kw)
+    loss_sum, sums, count = task.compute_sums(model, batch, train=train,
+                                              **task_kw)
+    total = count.float().reshape(1)
+    distributed.all_reduce_sum_(total)
+    denom = total[0].clamp_min(1) / distributed.process_count()
+    loss = loss_sum / denom
+    return loss, {"loss": loss.detach(),
+                  **{k: v / denom for k, v in sums.items() if k != "loss"}}
+
+
+def _backward(task, model, batch, n: int, task_kw: dict,
+              global_count: bool) -> Dict[str, torch.Tensor]:
     """Forward + backward over ``n`` microbatches; the gradients sum into
     ``.grad``, the metrics are their mean."""
-    if n == 1:
-        loss, metrics = task.compute_loss(model, batch, train=True, **task_kw)
-        loss.backward()
-        return metrics
     per = []
-    for mb in _microbatches(batch, n):
-        loss, metrics = task.compute_loss(model, mb, train=True, **task_kw)
+    for mb in (batch,) if n == 1 else _microbatches(batch, n):
+        loss, metrics = _task_loss(task, model, mb, train=True,
+                                   task_kw=task_kw, global_count=global_count)
         loss.backward()
         per.append(metrics)
+    if n == 1:
+        return per[0]
     return {k: torch.stack([m[k].float() for m in per]).mean()
             for k in per[0]}
 
@@ -206,8 +260,18 @@ def build_train_step(
         model.zero_grad(set_to_none=True)
         optimizer.zero_grad()
         task_kw = _task_kwargs(task, seed, _TRAIN, state.step, batch)
-        metrics = _mean_metrics(_backward(task, model, batch,
-                                          grad_accum_steps, task_kw))
+        world = distributed.process_count()
+        stats = running_stats(model)
+        # the running statistics update in place in the forward: a copy to
+        # put back if the step is skipped
+        saved = _flat(stats) if stats and skip_nonfinite else None
+        with global_batch_stats(not manual and world > 1):
+            metrics = _mean_metrics(_backward(
+                task, model, batch, grad_accum_steps, task_kw,
+                global_count=not manual and world > 1))
+        if manual and stats and world > 1:
+            flat = distributed.all_reduce_mean_(_flat(stats))
+            _unflat(flat, stats)
         if manual:
             norm = manual_sync(state)
         else:
@@ -221,6 +285,8 @@ def build_train_step(
             bad = (sharded(state).nonfinite_count() if manual
                    else nonfinite_count(grads))
             apply = not bool(bad > 0)
+            if not apply and saved is not None:
+                _unflat(saved, stats)
         collectives.check_rings()  # a ring wait that timed out raises here
         if apply and optimizer.step(grad_norm=norm) and manual:
             sharded(state).replicate(wire)
@@ -243,18 +309,20 @@ def build_train_step(
 def build_eval_step(task, *, seed: int = 0
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """One eval step: ``step(state, batch, batch_idx=0) -> metrics``, the
-    cross-process mean; ``batch_idx`` picks the batch's draws, so
-    validation masks do not repeat across batches. Reference parity:
-    ``validate`` under ``model.eval()`` + ``no_grad``
-    (train.py:154-175)."""
+    cross-process mean (a masked LM's over the global count of scored
+    positions, as JAX's eval on the global batch); ``batch_idx`` picks the
+    batch's draws, so validation masks do not repeat across batches.
+    BatchNorm uses its running statistics. Reference parity: ``validate``
+    under ``model.eval()`` + ``no_grad`` (train.py:154-175)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch,
                   batch_idx: int = 0) -> Dict[str, torch.Tensor]:
         state.model.eval()
-        _, metrics = task.compute_loss(
-            state.model, batch, train=False,
-            **_task_kwargs(task, seed, _EVAL, batch_idx, batch))
+        _, metrics = _task_loss(
+            task, state.model, batch, train=False,
+            task_kw=_task_kwargs(task, seed, _EVAL, batch_idx, batch),
+            global_count=distributed.process_count() > 1)
         return _mean_metrics(metrics)
 
     return eval_step

@@ -5,7 +5,10 @@ A task computes ``(loss, metrics)`` from (model, batch); metrics are
 device scalars (no host sync). Loss and accuracy are means over the local
 batch; the train and eval steps average them across processes, which with
 equal shards (the sampler's padding contract) is the mean over the global
-batch, as in JAX. A task with ``uses_generator`` (the masked LM) draws
+batch, as in JAX. A task that scores a data-dependent subset (the masked
+LM) also has ``compute_sums``, ``(loss sum, metric sums, count)``, so that
+the replicated step can divide by the count over every process
+(train/step.py). A task with ``uses_generator`` (the masked LM) draws
 from the step's ``torch.Generator`` (the JAX task's ``rng``) on the
 batch's device, passed as ``generator``.
 """
@@ -30,15 +33,33 @@ def _fused_head(model) -> bool:
     return getattr(model, "logits_mode", "full") == "hidden"
 
 
+def dequantize_inputs(x: torch.Tensor) -> torch.Tensor:
+    """uint8 image batches -> float32 in [0, 1] on the batch's device (the
+    JAX package's ``dequantize_inputs`` contract): a uint8 model input of
+    rank >= 3 is a [0, 255] image; a uint8 input of lower rank (token ids
+    as bytes, say) would be silently corrupted by the rescale, so it
+    raises. Every other dtype passes through."""
+    if x.dtype != torch.uint8:
+        return x
+    if x.dim() < 3:
+        raise TypeError(
+            f"uint8 model input of shape {tuple(x.shape)} is not an image "
+            "batch (rank < 3); the framework rescales uint8 inputs to "
+            "[0,1] float32 as images. Cast non-image inputs (e.g. token "
+            "ids) to int32 on the host.")
+    return x.float() / 255.0
+
+
 class ClassificationTask:
     """Cross-entropy classification on {'x', 'y'} batches: the reference's
-    CrossEntropyLoss (train.py:250) and top-1 accuracy in percent."""
+    CrossEntropyLoss (train.py:250) and top-1 accuracy in percent. uint8
+    images are rescaled to [0, 1] first (:func:`dequantize_inputs`)."""
 
     batch_keys = ("x", "y")
 
     def compute_loss(self, model, batch, *, train: bool
                      ) -> Tuple[torch.Tensor, Metrics]:
-        logits = model(batch["x"])
+        logits = model(dequantize_inputs(batch["x"]))
         labels = batch["y"].long()
         loss = F.cross_entropy(logits.float(), labels)
         accuracy = 100.0 * (logits.argmax(-1) == labels).float().mean()
@@ -91,7 +112,8 @@ class MLMTask:
     Two pure halves, so that a test can feed JAX's own draws to the loss:
     :meth:`corrupt` draws the masks from an explicit ``torch.Generator``
     (the port cannot reproduce ``jax.random``'s bits and does not try),
-    and :meth:`loss` scores the model's output.
+    and :meth:`loss` scores the model's output (:meth:`loss_sums` before
+    the division, which the replicated step takes over the global count).
     """
 
     batch_keys = ("tokens",)
@@ -128,12 +150,14 @@ class MLMTask:
         return inputs, selected
 
     @staticmethod
-    def loss(model, out: torch.Tensor, tokens: torch.Tensor,
-             selected: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
-        """Cross-entropy of the original ``tokens`` at the ``selected``
-        positions: fused (chunked CE against the tied table and
-        ``mlm_bias``) when the model returns hidden states, else on its
-        float32 logits."""
+    def loss_sums(model, out: torch.Tensor, tokens: torch.Tensor,
+                  selected: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Metrics, torch.Tensor]:
+        """``(loss sum, {"loss": loss sum, "accuracy": 100 x correct},
+        count)``: the cross-entropy of the original ``tokens`` summed over
+        the ``selected`` positions, fused (chunked CE against the tied
+        table and ``mlm_bias``) when the model returns hidden states, else
+        on its float32 logits."""
         if _fused_head(model):
             embedding, bias = model.head_params()
             per_tok, argmax = chunked_softmax_xent(
@@ -144,15 +168,36 @@ class MLMTask:
                 logits.reshape(-1, logits.shape[-1]), tokens.reshape(-1),
                 reduction="none").reshape(tokens.shape)
             argmax = logits.argmax(-1)
-        denom = selected.sum().clamp_min(1)
-        loss = torch.where(selected, per_tok, 0.0).sum() / denom
+        loss_sum = torch.where(selected, per_tok, 0.0).sum()
         correct = (selected & (argmax == tokens)).sum()
-        accuracy = 100.0 * correct / denom
-        return loss, {"loss": loss.detach(), "accuracy": accuracy}
+        return (loss_sum, {"loss": loss_sum.detach(),
+                           "accuracy": 100.0 * correct},
+                selected.sum())
+
+    @staticmethod
+    def _means(loss_sum: torch.Tensor, sums: Metrics, count: torch.Tensor
+               ) -> Tuple[torch.Tensor, Metrics]:
+        denom = count.clamp_min(1)
+        loss = loss_sum / denom
+        return loss, {"loss": loss.detach(),
+                      "accuracy": sums["accuracy"] / denom}
+
+    @classmethod
+    def loss(cls, model, out: torch.Tensor, tokens: torch.Tensor,
+             selected: torch.Tensor) -> Tuple[torch.Tensor, Metrics]:
+        """The mean over the local ``selected`` positions (divided by
+        ``max(count, 1)``), loss and accuracy."""
+        return cls._means(*cls.loss_sums(model, out, tokens, selected))
+
+    def compute_sums(self, model, batch, *, train: bool,
+                     generator: torch.Generator
+                     ) -> Tuple[torch.Tensor, Metrics, torch.Tensor]:
+        tokens = batch["tokens"].long()
+        inputs, selected = self.corrupt(tokens, generator)
+        return self.loss_sums(model, model(inputs), tokens, selected)
 
     def compute_loss(self, model, batch, *, train: bool,
                      generator: torch.Generator
                      ) -> Tuple[torch.Tensor, Metrics]:
-        tokens = batch["tokens"].long()
-        inputs, selected = self.corrupt(tokens, generator)
-        return self.loss(model, model(inputs), tokens, selected)
+        return self._means(*self.compute_sums(model, batch, train=train,
+                                              generator=generator))

@@ -12,9 +12,6 @@ import argparse
 
 # flag -> the JAX package's default: set to anything else, the port refuses
 UNSERVED = {
-    "augment": "none",
-    "augment_workers": 0,
-    "image_size": 32,
     "auto_mesh": False,
     "mesh_data": -1,
     "mesh_fsdp": 1,
@@ -61,15 +58,29 @@ def add_reference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The framework flags this slice serves."""
     parser.add_argument("--model", type=str, default="mlp",
-                        help="mlp|gpt2|bert-base (resnet18|resnet50|vit-b16 "
-                        "are not ported yet)")
+                        help="mlp|resnet18|resnet50|vit-b16|bert-base|gpt2")
     parser.add_argument("--dataset", type=str, default="synthetic",
-                        help="synthetic (mlp) | synthetic-tokens | "
+                        help="synthetic (mlp) | synthetic-image | "
+                        "cifar10-synthetic | cifar10 | digits (resnet18, "
+                        "resnet50, vit-b16) | synthetic-tokens | "
                         "tokens-file (gpt2, bert-base)")
+    parser.add_argument("--augment", type=str, default="none",
+                        choices=("none", "cifar", "crop", "imagenet"),
+                        help="train-time augmentation: cifar = pad-crop + "
+                        "flip, crop = pad-crop only (label-asymmetric data "
+                        "like digits), imagenet = random-resized-crop + "
+                        "flip")
+    parser.add_argument("--augment-workers", type=int, default=0,
+                        help="threads transforming each batch's "
+                        "augmentation; 0 = one per 32 images, capped at "
+                        "the cpu count")
+    parser.add_argument("--image-size", type=int, default=32,
+                        help="synthetic-image side, the imagenet crop's "
+                        "output side")
     parser.add_argument("--data-dir", type=str, default=None,
-                        help="root of real datasets (tokens-file reads "
-                        "train.bin / val.bin there); defaults to "
-                        "$DPX_DATA_DIR or ./data")
+                        help="root of real datasets (cifar10 reads "
+                        "cifar-10-batches-py/ there, tokens-file train.bin "
+                        "/ val.bin); defaults to $DPX_DATA_DIR or ./data")
     parser.add_argument("--token-dtype", type=str, default="uint16",
                         choices=("uint16", "uint32", "int32"),
                         help="element dtype of raw .bin token files")

@@ -3,24 +3,29 @@
 
 Trains GPT-2 124M (12 layers, width 768, vocab 50257) in bf16 with the
 fused loss on synthetic tokens, batch 16 x 1024, as chip_smoke.py's train
-phase does: 3 warm-up steps, 5 steps timed with CUDA events and no
+phase does; or, with ``--model resnet50|vit-b16``, phase 11's vision
+cells (bf16, 224 x 224, 1000 classes, batches of 128 and 64 synthetic
+images): 3 warm-up steps, 5 steps timed with CUDA events and no
 profiler, then 5 steps under ``torch.profiler`` with CPU and CUDA
-activities. Prints one JSON line: the unprofiled step time and tokens/s,
-the profiled wall time, device busy time (the sum of kernel times; one
-stream, so kernels do not overlap), the device's idle share, and device
-time by class — matmul, K1 forward, K1 backward, chunked cross-entropy,
-layernorm, elementwise, optimizer — with the top kernel names.
+activities. Prints one JSON line: the unprofiled step time and tokens/s
+(images/s), the profiled wall time, device busy time (the sum of kernel
+times; one stream, so kernels do not overlap), the device's idle share,
+and device time by class — matmul (cuBLAS and cuDNN's convolutions), K1
+forward, K1 backward, chunked cross-entropy, batchnorm, layernorm,
+elementwise, optimizer — with the top kernel names.
 
 A kernel's class comes from the op that launched it: kernels under the
 chunked cross-entropy's forward or backward count as "chunked CE", those
-under ``Optimizer.step`` as "optimizer", the flash kernels by name, and
-the rest by kernel name.
+under the port's BatchNorm function (forward or backward) as
+"batchnorm", those under ``Optimizer.step`` as "optimizer", the flash
+kernels by name, and the rest by kernel name.
 
-    python3 scripts/profile_torch_train.py
+    python3 scripts/profile_torch_train.py [--model gpt2|resnet50|vit-b16]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -31,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 BATCH, SEQ, WARMUP, TIMED, PROFILED = 16, 1024, 3, 5, 5
+VISION_BATCH, VISION_SIZE = {"resnet50": 128, "vit-b16": 64}, 224
 
 
 def name_class(name: str) -> str:
@@ -42,7 +48,7 @@ def name_class(name: str) -> str:
         return "K1 backward"
     # cuBLAS's Hopper GEMMs are named nvjet_*
     if any(key in low for key in ("gemm", "cutlass", "matmul", "xmma",
-                                  "nvjet")):
+                                  "nvjet", "conv", "cudnn")):
         return "matmul"
     if "norm" in low:
         return "layernorm"
@@ -57,10 +63,43 @@ def scope_class(event) -> str:
         name = event.name
         if "chunked_ce" in name or "_ChunkedXent" in name:
             return "chunked CE"
+        if "_BatchNormFn" in name:
+            return "batchnorm"
         if name.startswith("Optimizer.step") or "optimizer_step" in name:
             return "optimizer"
         event = event.cpu_parent
     return None
+
+
+def workload(torch, name: str, n: int):
+    """(model, task, batches, items per batch, description) of a cell."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        DeviceLoader,
+        SyntheticImageDataset,
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2, get_model
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        ClassificationTask,
+    )
+
+    if name == "gpt2":
+        model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                     device="cuda", seed=0)
+        data = SyntheticTokenDataset(n * BATCH, seq_len=SEQ, seed=0)
+        return (model, CausalLMTask(), DeviceLoader(
+            data, BATCH, device="cuda", prefetch=0), BATCH * SEQ,
+            f"GPT-2 124M bf16 fused loss, batch {BATCH} x {SEQ}")
+    batch = VISION_BATCH[name]
+    kw = dict(image_size=VISION_SIZE) if name.startswith("vit") else {}
+    model = get_model(name, num_classes=1000, dtype=torch.bfloat16,
+                      device="cuda", seed=0, **kw)
+    data = SyntheticImageDataset(n * batch, image_size=VISION_SIZE,
+                                 num_classes=1000, seed=0)
+    return (model, ClassificationTask(), DeviceLoader(
+        data, batch, device="cuda", prefetch=0), batch,
+        f"{name} bf16, batch {batch} x {VISION_SIZE}^2, 1000 classes")
 
 
 def main() -> int:
@@ -71,19 +110,18 @@ def main() -> int:
         print("profile_torch_train: no CUDA device is visible",
               file=sys.stderr)
         return 2
-    from distributed_pytorch_example_tpu_torch.data import (
-        DeviceLoader,
-        SyntheticTokenDataset,
-    )
-    from distributed_pytorch_example_tpu_torch.models import GPT2
     from distributed_pytorch_example_tpu_torch.ops._build import build_all
     from distributed_pytorch_example_tpu_torch.train import (
-        CausalLMTask,
         TrainState,
         build_train_step,
         make_optimizer,
     )
     from distributed_pytorch_example_tpu_torch.train import tasks
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--model", default="gpt2",
+                        choices=("gpt2", "resnet50", "vit-b16"))
+    args = parser.parse_args()
 
     build_all()
     fused = tasks.chunked_softmax_xent
@@ -93,16 +131,12 @@ def main() -> int:
             return fused(*args, **kwargs)
 
     tasks.chunked_softmax_xent = scoped
-    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
-                 seed=0)
+    n = WARMUP + TIMED + PROFILED
+    model, task, loader, items, config = workload(torch, args.model, n)
     state = TrainState(step=0, model=model,
                        optimizer=make_optimizer(model.parameters()))
-    step = build_train_step(CausalLMTask())
-    n = WARMUP + TIMED + PROFILED
-    batches = list(DeviceLoader(
-        SyntheticTokenDataset(n * BATCH, seq_len=SEQ, seed=0), BATCH,
-        device="cuda", prefetch=0,
-    ))
+    step = build_train_step(task)
+    batches = list(loader)
     for batch in batches[:WARMUP]:
         step(state, batch)
     torch.cuda.synchronize()
@@ -157,9 +191,10 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi.splitlines()[0] if smi else None,
-        "config": f"GPT-2 124M bf16 fused loss, batch {BATCH} x {SEQ}",
+        "config": config,
         "step_ms_unprofiled": step_ms,
-        "tokens_per_sec_unprofiled": BATCH * SEQ / step_ms * 1e3,
+        ("tokens_per_sec_unprofiled" if args.model == "gpt2"
+         else "images_per_sec_unprofiled"): items / step_ms * 1e3,
         "profiled_steps": PROFILED,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,

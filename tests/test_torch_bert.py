@@ -516,7 +516,7 @@ def test_cli_builds_bert_base_and_its_mlm_task(monkeypatch):
     ds = cli.build_dataset(args, 8, seed=0)
     assert ds.vocab_size == 30522 and ds.arrays["tokens"].shape == (8, 512)
     with pytest.raises(ValueError, match="ROADMAP"):
-        get_model("resnet18")
+        get_model("llama")
 
 
 @pytest.mark.parametrize("argv", [

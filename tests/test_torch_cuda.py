@@ -907,3 +907,109 @@ def test_reduce_scatter_raises_when_a_rank_never_arrives(card):
         assert rs_exact(*fresh, xs) == len(xs)
     finally:
         close_group(fresh[0])
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm and the ResNet on the card (no kernel of the port's own: the
+# module's arithmetic on CUDA tensors against the same module on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _bn_pair(dtype, seed=0):
+    from distributed_pytorch_example_tpu_torch.models import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    bn = BatchNorm(6)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-1, 1, generator=gen)
+    x = (torch.randn(4, 6, 9, 7, generator=gen) * 3 + 1).to(dtype)
+    dy = torch.randn(4, 6, 9, 7, generator=gen).to(dtype)
+    return bn, x, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_batchnorm_on_the_card_matches_its_cpu_result(card, dtype):
+    """Output, input / scale / bias gradients and running statistics:
+    float32 statistics either way, so only the summation order differs;
+    bf16 outputs and input gradients are rounded (TOL's half ulp)."""
+    import copy
+
+    bn, x, dy = _bn_pair(dtype)
+    gpu = copy.deepcopy(bn).to(card)
+    out = {}
+    for module, dev in ((bn, "cpu"), (gpu, card)):
+        xi = x.to(dev).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        y = module(xi)
+        y.backward(dy.to(dev))
+        out[str(dev)] = [t.detach().float().cpu() for t in (
+            y, xi.grad, module.weight.grad, module.bias.grad,
+            module.running_mean, module.running_var)]
+        assert y.dtype == dtype
+    for got, want in zip(out["cuda"], out["cpu"]):
+        scale = max(want.abs().max().item(), 1.0)
+        assert (got - want).abs().max().item() <= TOL[dtype] * scale
+
+
+def test_resnet_channels_last_matches_contiguous_input(card):
+    """The model's NHWC input is a channels_last NCHW view; a contiguous
+    NCHW copy of the same images gives the same logits and gradients
+    (cuDNN picks other algorithms: float32 with TF32 off, summation order
+    only)."""
+    from distributed_pytorch_example_tpu_torch.models import (
+        BottleneckBlock,
+        ResNet,
+    )
+
+    model = ResNet((1, 1), BottleneckBlock, num_classes=5, num_filters=8,
+                   device=card, seed=0)
+    x = torch.randn(4, 32, 32, 3, device=card,
+                    generator=torch.Generator(card).manual_seed(1))
+    grads, tf32 = [], torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for images in (x, x.permute(0, 3, 1, 2).contiguous()
+                       .permute(0, 2, 3, 1)):
+            model.zero_grad()
+            logits = model(images)
+            logits.square().sum().backward()
+            grads.append((logits.detach(), [p.grad.clone()
+                                            for p in model.parameters()]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (a, ga), (b, gb) = grads
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for u, v in zip(ga, gb):
+        torch.testing.assert_close(u, v, atol=1e-4, rtol=1e-3)
+
+
+def test_skipped_step_restores_the_running_stats_on_the_card(card):
+    from distributed_pytorch_example_tpu_torch.models import (
+        BasicBlock,
+        ResNet,
+    )
+    from distributed_pytorch_example_tpu_torch.models.batchnorm import (
+        running_stats,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        ClassificationTask,
+    )
+
+    model = ResNet((1, 1), BasicBlock, num_classes=5, num_filters=8,
+                   small_inputs=True, dtype=torch.bfloat16, device=card)
+    state = TrainState(step=0, model=model, optimizer=make_optimizer(
+        model.parameters(), "adam", 1e-3))
+    step = build_train_step(ClassificationTask())
+    gen = torch.Generator(card).manual_seed(2)
+    batch = {"x": torch.randn(4, 16, 16, 3, device=card, generator=gen),
+             "y": torch.randint(0, 5, (4,), device=card, generator=gen)}
+    step(state, batch)
+    before = [t.clone() for t in running_stats(model)]
+    params = [p.detach().clone() for p in model.parameters()]
+    batch["x"][2, 5, 5, 0] = float("nan")
+    assert float(step(state, batch)["bad_step"]) == 1.0
+    assert all(torch.equal(a, b) for a, b in zip(running_stats(model),
+                                                   before))
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), params))

@@ -108,7 +108,7 @@ def test_engine_refuses_out_of_slice_options():
 
 
 def test_train_cli_refuses_flags_outside_the_slice():
-    for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"], ["--model", "resnet18"],
+    for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"], ["--model", "llama"],
                  ["--checkpoint-format", "sharded"],
                  ["--optimizer", "adafactor"], ["--optimizer", "lamb", "--zero1"],
                  ["--model", "gpt2", "--dataset", "synthetic"]):
