@@ -102,9 +102,30 @@ last line:
    (f) The CLI on ResNet-18 at 32 x 32 logs "Training completed". Then,
    with no check, one ViT-B/16 attention layer timed through the plain
    path, K1's lane-padded path and SDPA.
+12. llama — LLaMA at the JAX package's defaults (12 layers of 768, 12
+   query heads over 4 kv heads, RoPE, RMSNorm, SwiGLU MLP 2048, vocab
+   32000), random weights from seed 0: (a) K1 at its GQA shape (16 x
+   1024 and 8 x 2048, bf16, causal) forward and backward against the
+   plain versions, timed beside the bound and SDPA with ``enable_gqa``;
+   (b) bf16 training through ``Trainer.fit`` as in phase 6 (K1 12 x 11
+   forward, 12 x 10 backward), against plain attention's losses, and its
+   first-step gradients against a float32 step by phase 10's bound; (c)
+   the same model with ``remat`` for 3 steps: the same losses, less peak
+   memory; (d) the CLI with ``--optimizer adafactor --remat``, lamb
+   under ZeRO-1 at world 2 (phase 8's two processes, LLaMA's width at
+   depth 2) against lamb on whole leaves fed the same synced gradients
+   and against the one-process run, and a BERT-tiny MLM step with
+   dropout 0.1 with and without remat (the same gradients); (e) K2 at
+   its decode shape (8 x 12 over 4 kv heads, 128 blocks of 16, RoPE'd
+   keys) against its plain version and timed, then LLaMA served in
+   float32 (pool 513 x 16, 8 slots, 16 requests, greedy and top-k 50),
+   K2 once per layer per decode step, greedy tokens and paged logits
+   against the plain forward. The ``llama`` fields of the K1 and K2
+   entries carry these shapes' numbers.
 
-Each main path (serve, train, zero1, checkpoint, bert, vision) runs with
-every launch count set to 0 just before it and read just after.
+Each main path (serve, train, zero1, checkpoint, bert, vision, and
+llama's train and serve) runs with every launch count set to 0 just
+before it and read just after.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -480,25 +501,14 @@ def flash_errors(torch, got, ref):
     return errs
 
 
-def sdpa_backend(torch, fn):
-    """Which of SDPA's backends ``fn`` ran, read from the names of the
-    CUDA kernels one call launched under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def sdpa_backend(torch, *args, **kw):
+    """The backend SDPA's dispatcher picks for ``sdpa(*args, **kw)``; its
+    backward is that backend's own. (Not read from the kernels' names
+    under ``torch.profiler``: on the card a short profile came back empty,
+    now and then, once the card had been busy for half a minute.)"""
+    from torch.nn.attention import SDPBackend
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA})
-    low = " ".join(names).lower()
-    kinds = [kind for kind, keys in (
-        ("cudnn", ("cudnn",)), ("flash", ("flash",)),
-        ("mem-efficient", ("fmha", "efficient", "mem_eff")),
-    ) if any(key in low for key in keys)]
-    top = ", ".join(n[:60] for n in names[:4])
-    return f"{'/'.join(kinds) or 'unknown'} (kernels: {top})"
+    return SDPBackend(torch._fused_sdp_choice(*args, **kw)).name.lower()
 
 
 def check_flash(torch, bandwidth):
@@ -585,10 +595,8 @@ def check_flash(torch, bandwidth):
         return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                    retain_graph=True)
 
-    for kind, fn in (("forward", lambda: sdpa(qt, kt, vt, is_causal=True)),
-                     ("backward", sdpa_bwd)):
-        say("kernel", f"SDPA {kind} backend at the training shape: "
-                      + sdpa_backend(torch, fn))
+    say("kernel", "SDPA backend at the training shape: "
+                  + sdpa_backend(torch, qt, kt, vt, is_causal=True))
     ms = {}
     # plain, kernel, kernel, plain: keep the comparison inside one call
     for label, fn, iters in (
@@ -688,13 +696,10 @@ def time_bert_flash(torch, bandwidth, inputs, max_abs):
         return lambda: torch.autograd.grad(outs[which], (qt, kt, vt), dot,
                                            retain_graph=True)
 
-    backends = {}
-    for which, fwd in (("masked", lambda: sdpa(qt, kt, vt, attn_mask=keep)),
-                       ("unmasked", lambda: sdpa(qt, kt, vt))):
-        for kind, fn in (("fwd", fwd), ("bwd", sdpa_bwd(which))):
-            backends[kind, which] = sdpa_backend(torch, fn)
-            say("kernel", f"SDPA {kind} {which} backend at the BERT shape: "
-                          + backends[kind, which])
+    backends = {"masked": sdpa_backend(torch, qt, kt, vt, attn_mask=keep),
+                "unmasked": sdpa_backend(torch, qt, kt, vt)}
+    for which, backend in backends.items():
+        say("kernel", f"SDPA {which} backend at the BERT shape: {backend}")
     ms = {}
     for label, fn, iters in (
         ("fwd_plain", lambda: flash_attention_fwd_reference(q, k, v,
@@ -744,11 +749,11 @@ def time_bert_flash(torch, bandwidth, inputs, max_abs):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": ms[f"sdpa_{kind}_masked"],
-            "library_backend": backends[kind, "masked"],
+            "library_backend": backends["masked"],
             "unmasked_ms": ms[kind + "_unmasked"],
             "unmasked_bound_ms": full_ms,
             "library_unmasked_ms": ms[f"sdpa_{kind}_unmasked"],
-            "library_unmasked_backend": backends[kind, "unmasked"],
+            "library_unmasked_backend": backends["unmasked"],
         }
         say("kernel", f"flash_attention_{kind} at the BERT shape "
                       f"(B={B} N={N} S={S} H={H} bf16 non-causal, key mask "
@@ -971,14 +976,14 @@ def time_ring(torch, bandwidth, kind, rings, xs, streams, world):
 # ---------------------------------------------------------------------------
 
 
-def workload(Request, seed=0, n=16):
+def workload(Request, seed=0, n=16, vocab=50257):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return [
         Request(
             rid=f"req{i:04d}",
-            prompt=[int(t) for t in rng.integers(0, 50257,
+            prompt=[int(t) for t in rng.integers(0, vocab,
                                                  int(rng.integers(32, 257)))],
             max_new_tokens=int(rng.integers(32, 65)),
             seed=seed * 100_003 + i,
@@ -1038,12 +1043,15 @@ def serve(torch):
     return sum(launches for _, launches in runs.values())
 
 
-def check_against_plain(torch, model, report):
+def check_against_plain(torch, model, report, plain=None, vocab=50257,
+                        phase="serve"):
     """Greedy tokens and paged logits against the plain full-sequence
-    forward on the card (same weights, no KV cache, no kernel)."""
+    forward on the card (same weights, no KV cache, no kernel); ``plain``
+    is that model (default GPT-2), ``vocab`` the workload's."""
     from distributed_pytorch_example_tpu_torch.models import GPT2
 
-    plain = GPT2(device="cuda", seed=0)
+    if plain is None:
+        plain = GPT2(device="cuda", seed=0)
     plain.load_state_dict(model.state_dict())
     plain.eval()
     # float32 everywhere with TF32 off: paged and plain differ only in
@@ -1053,7 +1061,7 @@ def check_against_plain(torch, model, report):
     with torch.inference_mode():
         for rid in rids:
             r = report["results"][rid]
-            prompt = workload_prompt(rid)
+            prompt = workload_prompt(rid, vocab)
             seq = torch.tensor([prompt + r["tokens"]], device="cuda")
             logits = plain(seq)[0]
             plen = len(prompt)
@@ -1064,12 +1072,12 @@ def check_against_plain(torch, model, report):
             check(gap <= logit_tol,
                   f"{rid}: a greedy token is {gap:.2e} below the plain "
                   f"argmax logit (tol {logit_tol})")
-            say("serve", f"{rid}: {len(r['tokens'])} greedy tokens are the "
+            say(phase, f"{rid}: {len(r['tokens'])} greedy tokens are the "
                          f"plain forward's argmax (exact={exact}, worst gap "
                          f"{gap:.2e})")
         # paged prefill + 3 decode steps vs the plain forward, logit by logit
         rid = rids[0]
-        prompt = workload_prompt(rid)
+        prompt = workload_prompt(rid, vocab)
         gen = report["results"][rid]["tokens"][:3]
         plen = len(prompt)
         bucket = -(-plen // BLOCK_SIZE) * BLOCK_SIZE
@@ -1092,15 +1100,16 @@ def check_against_plain(torch, model, report):
         err = (got - ref).abs().max().item()
         check(err <= logit_tol,
               f"paged vs plain logits: max abs err {err:.3e} > {logit_tol}")
-        say("serve", f"paged prefill + {len(gen)} decode steps vs plain "
+        say(phase, f"paged prefill + {len(gen)} decode steps vs plain "
                      f"forward: max abs logit err {err:.3e} (tol "
                      f"{logit_tol}: float32, reduction order only)")
 
 
-def workload_prompt(rid):
+def workload_prompt(rid, vocab=50257):
     from distributed_pytorch_example_tpu_torch.serving import Request
 
-    return list(next(r for r in workload(Request) if r.rid == rid).prompt)
+    return list(next(r for r in workload(Request, vocab=vocab)
+                     if r.rid == rid).prompt)
 
 
 # ---------------------------------------------------------------------------
@@ -1159,10 +1168,11 @@ def reset_counts():
         kernel.launches = 0
 
 
-def fit_run(torch, model, task, train_ds, val_ds, batch):
-    """One epoch of ``Trainer.fit`` on the card, Adam at lr 1e-3; returns
-    (losses, step ms, history, peak bytes, the first step's gradients by
-    name on the CPU)."""
+def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None):
+    """One epoch of ``Trainer.fit`` on the card, Adam at lr 1e-3, over the
+    first ``steps`` batches (default all); returns (losses, step ms,
+    history, peak bytes, the first step's gradients by name on the
+    CPU)."""
     from distributed_pytorch_example_tpu_torch.data import DeviceLoader
     from distributed_pytorch_example_tpu_torch.train import (
         Trainer,
@@ -1192,8 +1202,9 @@ def fit_run(torch, model, task, train_ds, val_ds, batch):
     trainer.train_step = timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    loader = DeviceLoader(train_ds, batch, device="cuda", seed=0)
     history = trainer.fit(
-        DeviceLoader(train_ds, batch, device="cuda", seed=0),
+        loader if steps is None else Take(loader, steps),
         DeviceLoader(val_ds, batch, device="cuda", shuffle=False),
         epochs=1,
     )
@@ -2449,6 +2460,676 @@ def vision(torch, smi_line):
     vision_attention_timing(torch)
 
 
+# ---------------------------------------------------------------------------
+# 12. llama: LLaMA (RoPE, RMSNorm, SwiGLU, GQA 12/4) trained and served
+# ---------------------------------------------------------------------------
+
+LLAMA_KV_HEADS, LLAMA_VOCAB, LLAMA_MAX_BLOCKS = 4, 32000, 128
+# K1 at LLaMA's training shape and at its max_len, the same 16k tokens:
+# sequence length -> batch
+LLAMA_FLASH = {1024: 16, 2048: 8}
+LLAMA_REMAT_STEPS = 3
+# the ZeRO-1 lamb run: LLaMA's width at depth 2, two processes on the card
+LLAMA_ZERO1_LAYERS, LLAMA_ZERO1_STEPS = 2, 2
+# ZeRO-1 lamb against lamb on whole leaves fed the same synced gradients:
+# the tiles' squared norms are summed across ranks in float32, so only
+# that sum's rounding separates them, ||u - u_ref|| / ||u_ref|| per leaf
+LAMB_TILE_TOL = 1e-4
+# remat against no remat, the same BERT step with dropout on the card,
+# ||g - g_ref|| / ||g_ref|| per leaf: the recompute repeats the same
+# kernels on the same inputs, so any gap is a reduction order at most; a
+# mask drawn differently in the recompute puts a leaf at O(1)
+REMAT_TOL = 1e-3
+# K2 at LLaMA's serving geometry (12 query heads over 4 kv heads, 128
+# blocks of 16 per row): lengths on and around block edges up to the
+# full table
+LLAMA_LENS = (0, 15, 16, 17, 511, 1024, 2000, 2047)
+
+
+def flash_gqa_bound(bandwidth, B, S, N, KVH, H):
+    """{kind: (bound ms, by, bytes, flops)} of K1 in bf16, causal, with
+    N query heads over KVH kv heads: each input read once, each output
+    written once; the causal triangle's products, 2 flops a
+    multiply-add (forward q.k^T and p.v; backward the q.k^T recompute,
+    dO.v^T, p^T.dO, ds^T.q, ds.k)."""
+    q_elem, kv_elem = B * S * N * H * 2, B * S * KVH * H * 2
+    row = B * N * S * 4
+    tri = B * N * H * S * (S + 1)
+    out = {}
+    for kind, nbytes, flops in (
+            ("fwd", 2 * q_elem + 2 * kv_elem + row, 2 * tri),
+            ("bwd", 4 * q_elem + 4 * kv_elem + row, 5 * tri)):
+        bytes_ms = nbytes / bandwidth * 1e3
+        ops_ms = flops / _BF16_PEAK * 1e3
+        out[kind] = (max(bytes_ms, ops_ms),
+                     "bytes" if bytes_ms >= ops_ms else "operations",
+                     nbytes, flops)
+    return out
+
+
+def llama_flash(torch, bandwidth):
+    """(a) K1 at LLaMA's GQA 12/4 shapes, bf16 causal, forward and
+    backward against the plain versions, then timed beside the bound and
+    SDPA with ``enable_gqa``; returns the ``llama`` fields of the K1
+    entries, by sequence length."""
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    N, KVH, H = HEADS, LLAMA_KV_HEADS, HEAD_DIM
+    fields = {"fwd": {}, "bwd": {}}
+    for S, B in LLAMA_FLASH.items():
+        q, k, v, do, _ = flash_case(torch, batch=B, heads=N, kv_heads=KVH,
+                                    seq=S, head_dim=H, dtype=torch.bfloat16,
+                                    masked=False, seed=S)
+        args = dict(causal=True, kv_mask=None, softmax_scale=H ** -0.5)
+        o, lse = flash_attention_fwd(q, k, v, **args)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **args)
+        ro, rlse = flash_attention_fwd_reference(q, k, v, **args)
+        rgrads = flash_attention_bwd_reference(q, k, v, o, lse, do, **args)
+        torch.cuda.synchronize()
+        errs = flash_errors(torch, (o, lse, *grads), (ro, rlse, *rgrads))
+        tols = FLASH_TOL["bfloat16"]
+        for key, err in errs.items():
+            check(math.isfinite(err) and err <= tols[key],
+                  f"K1 llama S={S}: {key} error {err:.3e} > tol "
+                  f"{tols[key]:.0e}")
+        max_abs = {"fwd": (o.float() - ro.float()).abs().max().item(),
+                   "bwd": max((g.float() - r.float()).abs().max().item()
+                              for g, r in zip(grads, rgrads))}
+        del ro, rlse, rgrads
+        say("llama", f"K1 bf16 causal GQA {N}/{KVH} B={B} S={S} H={H}: "
+                     + ", ".join(f"{key} {err:.3e} (tol {tols[key]:.0e})"
+                                 for key, err in errs.items()))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        def sdpa_fwd():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        backend = sdpa_backend(torch, qt, kt, vt, is_causal=True,
+                               enable_gqa=True)
+        ms = {}
+        for label, fn, iters in (
+            ("fwd_plain", lambda: flash_attention_fwd_reference(
+                q, k, v, **args), 3),
+            ("fwd", lambda: flash_attention_fwd(q, k, v, **args), 20),
+            ("fwd2", lambda: flash_attention_fwd(q, k, v, **args), 20),
+            ("fwd_plain2", lambda: flash_attention_fwd_reference(
+                q, k, v, **args), 3),
+            ("bwd_plain", lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, **args), 3),
+            ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                **args), 20),
+            ("bwd2", lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                 **args), 20),
+            ("bwd_plain2", lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, **args), 3),
+            ("sdpa_fwd", sdpa_fwd, 20),
+            ("sdpa_bwd", sdpa_bwd, 20),
+        ):
+            ms[label] = time_cold(torch, fn, iters=iters)
+        for kind, (bound, by, nbytes, flops) in flash_gqa_bound(
+                bandwidth, B, S, N, KVH, H).items():
+            entry = {
+                "shape": f"B={B} N={N} KVH={KVH} S={S} H={H} bf16 causal",
+                # (b)'s count at S = 1024; no main-path run counts S = 2048
+                "launches": None,
+                "max_abs_err": max_abs[kind],
+                "ms": min(ms[kind], ms[kind + "2"]),
+                "plain_ms": min(ms[kind + "_plain"], ms[kind + "_plain2"]),
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": ms["sdpa_" + kind],
+                "library_backend": backend,
+            }
+            fields[kind][str(S)] = entry
+            say("llama", f"flash_attention_{kind} {entry['shape']}: kernel "
+                         f"{ms[kind]:.4f}/{ms[kind + '2']:.4f} ms, plain "
+                         f"{ms[kind + '_plain']:.4f}/"
+                         f"{ms[kind + '_plain2']:.4f} ms, SDPA enable_gqa "
+                         f"{ms['sdpa_' + kind]:.4f} ms ("
+                         f"{'forward' if kind == 'fwd' else 'backward alone'}"
+                         f"; {backend}), bound {bound:.4f} ms "
+                         f"({nbytes} bytes, {flops} flops)")
+        del q, k, v, do, o, lse, grads, qt, kt, vt, dot, sdpa_out
+        torch.cuda.empty_cache()
+    return fields
+
+
+def llama_run(torch, use_flash, dtype=None, remat=False, steps=None):
+    """LLaMA at the JAX package's defaults (12 layers of 768, 12 heads over
+    4 kv heads, MLP 2048, vocab 32000), bf16 unless ``dtype`` says
+    otherwise, fused loss, through Trainer.fit (see :func:`fit_run`) on
+    the first ``steps`` of 10 batches of 16 x 1024 synthetic tokens."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import Llama
+    from distributed_pytorch_example_tpu_torch.train import CausalLMTask
+
+    model = Llama(dtype=dtype or torch.bfloat16, logits_mode="hidden",
+                  use_flash=use_flash, remat=remat, device="cuda", seed=0)
+    train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ,
+                                     vocab_size=LLAMA_VOCAB, seed=0)
+    val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                   vocab_size=LLAMA_VOCAB, seed=1)
+    return fit_run(torch, model, CausalLMTask(), train_ds, val_ds,
+                   TRAIN_BATCH, steps=steps)
+
+
+def llama_train(torch, smi_line):
+    """(b) and (c): LLaMA trained at full width and depth, against plain
+    attention and a float32 step, then with ``remat``. Returns K1's
+    launches in (b)'s run."""
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    reset_counts()
+    losses, step_ms, history, peak, grads = llama_run(torch, None)
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"llama: losses {losses}")
+    check(math.isfinite(history[0]["val_loss"]),
+          f"llama: validation loss {history[0]['val_loss']}")
+    check(fwd == LAYERS * (TRAIN_STEPS + 1) and bwd == LAYERS * TRAIN_STEPS,
+          f"llama: flash launched fwd {fwd} bwd {bwd} times, want "
+          f"{LAYERS} x ({TRAIN_STEPS} steps + 1 validation batch) and "
+          f"{LAYERS} x {TRAIN_STEPS}")
+    steady = sorted(step_ms[2:])
+    median = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say("llama", f"{smi_line}: LLaMA (12 x 768, GQA 12/4, vocab 32000) bf16 "
+                 f"fused loss, Adam, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+                 f"{TRAIN_STEPS} steps, losses "
+                 f"{[round(x, 4) for x in losses]}, val loss "
+                 f"{history[0]['val_loss']:.4f}; step ms "
+                 f"{[round(x, 2) for x in step_ms]} (median of steps 3+ "
+                 f"{median:.2f} ms = {tokens / median * 1e3:.0f} tokens/s); "
+                 f"peak memory {peak / 2**30:.2f} GiB; K1 launches fwd {fwd} "
+                 f"bwd {bwd}")
+    plain, plain_ms, _, plain_peak, plain_grads = llama_run(torch, False)
+    worst = max(abs(a - b) for a, b in zip(losses, plain))
+    check(worst <= LOSS_TOL,
+          f"llama: flash vs plain attention losses differ by {worst:.3e} > "
+          f"{LOSS_TOL} ({losses} vs {plain})")
+    # first-step gradients against a float32 plain-attention step on the
+    # same batch: within GRAD_TOL, or within BERT_GRAD_SLACK x plain bf16
+    # attention's own gap where that is larger (phase 10's bound)
+    ref = llama_run(torch, False, dtype=torch.float32, steps=1)[4]
+    gaps = gradient_gaps(grads, ref)
+    plain_gaps = gradient_gaps(plain_grads, ref)
+    bound = {name: max(GRAD_TOL, BERT_GRAD_SLACK * plain_gaps[name])
+             for name in gaps}
+    over = {name: gap for name, gap in gaps.items()
+            if not (math.isfinite(gap) and gap <= bound[name])}
+    check(not over,
+          f"llama: first-step gradients off the float32 step beyond "
+          f"max({GRAD_TOL}, {BERT_GRAD_SLACK} x plain bf16's gap): "
+          + ", ".join(f"{name} {gap:.3e} (plain {plain_gaps[name]:.3e})"
+                      for name, gap in over.items()))
+    worst_leaf = max(gaps, key=lambda name: gaps[name] / bound[name])
+    worst_abs = max(gaps, key=gaps.get)
+    worst_plain = max(plain_gaps, key=plain_gaps.get)
+    plain_median = sorted(plain_ms[2:])[len(plain_ms[2:]) // 2]
+    say("llama", f"plain attention, same seed and batches: losses "
+                 f"{[round(x, 4) for x in plain]}, worst per-step gap "
+                 f"{worst:.3e} (tol {LOSS_TOL}); median step "
+                 f"{plain_median:.2f} ms; peak memory "
+                 f"{plain_peak / 2**30:.2f} GiB. First-step gradients "
+                 f"against a float32 plain step, ||g - g_f32|| / ||g_f32|| "
+                 f"over {len(gaps)} leaves: flash worst {gaps[worst_abs]:.3e}"
+                 f" ({worst_abs}), nearest its bound {gaps[worst_leaf]:.3e} "
+                 f"({worst_leaf}; bound {bound[worst_leaf]:.3e}); plain bf16"
+                 f" worst {plain_gaps[worst_plain]:.3e} ({worst_plain})")
+    del grads, plain_grads, ref
+    # (c) the same model with remat: the same first steps, less memory
+    reset_counts()
+    remat, remat_ms, _, remat_peak, _ = llama_run(
+        torch, None, remat=True, steps=LLAMA_REMAT_STEPS)
+    torch.cuda.synchronize()
+    rfwd, rbwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    n = LLAMA_REMAT_STEPS
+    gap = max(abs(a - b) for a, b in zip(remat, losses[:n]))
+    check(gap <= LOSS_TOL, f"llama: remat losses {remat} vs {losses[:n]}")
+    check(remat_peak < peak, f"llama: remat peak {remat_peak} bytes not "
+                             f"below the run without remat's {peak}")
+    check(rfwd == LAYERS * (2 * n + 1) and rbwd == LAYERS * n,
+          f"llama: remat K1 launches fwd {rfwd} bwd {rbwd}, want "
+          f"{LAYERS} x (2 x {n} + 1) and {LAYERS} x {n}")
+    say("llama", f"remat, {n} steps: losses {[round(x, 4) for x in remat]} "
+                 f"(without remat {[round(x, 4) for x in losses[:n]]}; "
+                 f"bit-equal {remat == losses[:n]}, worst gap {gap:.3e}); "
+                 f"step ms {[round(x, 2) for x in remat_ms]}; peak memory "
+                 f"{remat_peak / 2**30:.2f} GiB against "
+                 f"{peak / 2**30:.2f} GiB without; K1 launches fwd {rfwd} "
+                 f"(the recompute runs each forward again) bwd {rbwd}")
+    return fwd, bwd
+
+
+def llama_cli():
+    """(d) the training CLI on LLaMA with adafactor and --remat."""
+    cmd = [sys.executable, "-m", "distributed_pytorch_example_tpu_torch.train",
+           "--model", "llama", "--dataset", "synthetic-tokens", "--seq-len",
+           str(TRAIN_SEQ), "--dtype", "bfloat16", "--batch-size",
+           str(TRAIN_BATCH), "--epochs", "1", "--num-samples", "48",
+           "--optimizer", "adafactor", "--remat", "--checkpoint-dir", ""]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0 and "Training completed" in log,
+          f"llama CLI exit {proc.returncode}: {log[-3000:]}")
+    tail = [line.split("] ", 1)[-1] for line in log.splitlines()
+            if "Throughput" in line or "Training completed" in line
+            or "Loss" in line]
+    say("llama", f"{' '.join(cmd[1:])} in {time.perf_counter() - t0:.1f} s: "
+                 f"{tail}")
+
+
+def llama_lamb_batches(torch):
+    """The ZeRO-1 lamb run's global batches: 16 x 1024 tokens each."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticTokenDataset,
+    )
+
+    ds = SyntheticTokenDataset(LLAMA_ZERO1_STEPS * TRAIN_BATCH,
+                               seq_len=TRAIN_SEQ, vocab_size=LLAMA_VOCAB,
+                               seed=0)
+    tokens = torch.from_numpy(ds.arrays["tokens"]).long()
+    return tokens.reshape(LLAMA_ZERO1_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+
+
+def llama_lamb_state(torch, partitioner=None):
+    """LLaMA at depth 2, bf16, fused loss, lamb at lr 1e-3, and its step."""
+    from distributed_pytorch_example_tpu_torch.models import Llama
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        TrainState,
+        build_train_step,
+        make_optimizer,
+    )
+
+    model = Llama(num_layers=LLAMA_ZERO1_LAYERS, dtype=torch.bfloat16,
+                  logits_mode="hidden", device="cuda", seed=0)
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model, "lamb", 1e-3))
+    return state, build_train_step(CausalLMTask(), partitioner=partitioner)
+
+
+def llama_lamb_worker(ref_path: str) -> int:
+    """One rank of the two-process ZeRO-1 lamb run (started by
+    :func:`llama_lamb` with REPLICAS / PROCESS_ID / MASTER_ADDR /
+    MASTER_PORT set); prints one ``chip_smoke_llama_lamb`` JSON line."""
+    import torch
+
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_reduce_scatter,
+    )
+    from distributed_pytorch_example_tpu_torch.parallel import (
+        WireConfig,
+        data_parallel,
+    )
+    from distributed_pytorch_example_tpu_torch.parallel.wire import (
+        DEFAULT_BUCKET_BYTES,
+        _scatter_parts,
+        _unscatter,
+    )
+    from distributed_pytorch_example_tpu_torch.runtime import distributed
+    from distributed_pytorch_example_tpu_torch.train.optimizers import Lamb
+
+    distributed.initialize(device="cuda")
+    rank, world = distributed.process_index(), distributed.process_count()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    part = data_parallel(world, dp_shard_opt_state=True, wire=WireConfig(
+        bucket_bytes=DEFAULT_BUCKET_BYTES))
+    state, step = llama_lamb_state(torch, part)
+    update = step.sharded(state)
+    p0 = [leaf.to_jax(p).detach().clone()
+          for leaf, p in zip(update.leaves, update.params)]
+    per = TRAIN_BATCH // world
+    ring_all_gather.launches = ring_reduce_scatter.launches = 0
+    losses, ref = [], torch.load(ref_path)
+    for i, tokens in enumerate(llama_lamb_batches(torch)):
+        local = {"tokens": tokens[rank * per:(rank + 1) * per].to("cuda")}
+        losses.append(float(step(state, local)["loss"]))
+        if i:
+            continue
+        gaps = first_step_gaps(torch, update, ref_path, rank, world,
+                               _scatter_parts)
+        # lamb on whole leaves, fed the synced gradients put together
+        full = []
+        for leaf, p, tile, dim, cs in zip(update.leaves, update.params,
+                                          update.tiles, update.dims,
+                                          update.chunk_shapes):
+            if tile is None:
+                full.append(leaf.to_jax(p.grad).float())
+            else:
+                rows = distributed.all_gather_tiled(
+                    tile.grad.reshape(1, -1))
+                full.append(_unscatter(rows, dim, cs))
+        leaves = [t.clone().requires_grad_() for t in p0]
+        for t, g in zip(leaves, full):
+            t.grad = g
+        Lamb(leaves, lr=1e-3).step()
+        tile_gap, one_gap = 0.0, {}
+        for leaf, p, start, want in zip(update.leaves, update.params, p0,
+                                        leaves):
+            got = leaf.to_jax(p).detach() - start
+            step_ref = want.detach() - start
+            tile_gap = max(tile_gap, ((got - step_ref).norm()
+                                      / step_ref.norm().clamp_min(1e-30))
+                           .item())
+            one = leaf.to_jax(ref["params"][leaf.name].to("cuda")) - start
+            one_gap[leaf.name] = ((got - one).norm()
+                                  / one.norm().clamp_min(1e-30)).item()
+    print("chip_smoke_llama_lamb " + json.dumps({
+        "rank": rank, "world": world, "losses": losses,
+        "grad_gaps": gaps, "tile_gap": tile_gap, "update_gaps": one_gap,
+        "zero1_leaves": sum(d is not None for d in update.dims),
+        "k3a": ring_all_gather.launches, "k3b": ring_reduce_scatter.launches,
+    }), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def llama_lamb(torch):
+    """(d) lamb under ZeRO-1 at world 2 on the card (two processes, gloo,
+    K3 through CUDA IPC) against the one-process replicated lamb run on
+    the same global batches."""
+    from distributed_pytorch_example_tpu_torch.ops import _build
+
+    state, step = llama_lamb_state(torch)
+    losses = []
+    for i, tokens in enumerate(llama_lamb_batches(torch)):
+        losses.append(float(step(state, {"tokens": tokens.to("cuda")})
+                            ["loss"]))
+        if not i:
+            ref = {"grads": {}, "params": {}}
+            for name, p in state.model.named_parameters():
+                ref["grads"][name] = p.grad.detach().cpu()
+                ref["params"][name] = p.detach().cpu()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ref_path = str(_build.BUILD_DIR / "llama_lamb_reference.pt")
+    # first_step_gaps reads the gradients by name at the file's top level
+    torch.save({**ref["grads"], "params": ref["params"]}, ref_path)
+    del state, step, ref
+    torch.cuda.empty_cache()
+    port = free_port()
+    procs = []
+    for rank in range(ZERO1_WORLD):
+        env = {**os.environ, "REPLICAS": str(ZERO1_WORLD),
+               "PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--llama-lamb-worker", ref_path],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.remove(ref_path)
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        found = [line for line in out.splitlines()
+                 if line.startswith("chip_smoke_llama_lamb ")]
+        check(proc.returncode == 0 and found,
+              f"llama lamb: rank {rank} exit {proc.returncode}: "
+              f"{out[-3000:]}")
+        r = json.loads(found[-1].split(" ", 1)[1])
+        gap = max(abs(a - b) for a, b in zip(r["losses"], losses))
+        grads = {k: v for k, v in r["grad_gaps"].items()
+                 if not k.endswith("attn.k.bias")}
+        worst = max(grads, key=grads.get)
+        updates = {k: v for k, v in r["update_gaps"].items()
+                   if not k.endswith("attn.k.bias")}
+        worst_update = max(updates, key=updates.get)
+        check(gap <= LOSS_TOL, f"llama lamb rank {rank}: losses "
+                               f"{r['losses']} vs replicated {losses}")
+        check(grads[worst] <= ZERO1_GRAD_TOL,
+              f"llama lamb rank {rank}: first-step gradient of {worst} "
+              f"{grads[worst]:.3e} off the replicated run's > "
+              f"{ZERO1_GRAD_TOL}")
+        check(r["tile_gap"] <= LAMB_TILE_TOL,
+              f"llama lamb rank {rank}: the ZeRO-1 update is "
+              f"{r['tile_gap']:.3e} off lamb on whole leaves > "
+              f"{LAMB_TILE_TOL}")
+        check(r["zero1_leaves"] > 0 and r["k3b"] > 0,
+              f"llama lamb rank {rank}: {r['zero1_leaves']} ZeRO-1 leaves, "
+              f"K3b launches {r['k3b']}")
+        say("llama", f"lamb under ZeRO-1, {ZERO1_WORLD} processes on the "
+                     f"card, LLaMA width 768 depth {LLAMA_ZERO1_LAYERS}, "
+                     f"rank {rank}: losses "
+                     f"{[round(x, 4) for x in r['losses']]} (replicated "
+                     f"{[round(x, 4) for x in losses]}, gap {gap:.3e}, tol "
+                     f"{LOSS_TOL}); first-step gradients worst "
+                     f"{grads[worst]:.3e} ({worst}, tol {ZERO1_GRAD_TOL}); "
+                     f"first update against lamb on the whole leaves with "
+                     f"the same synced gradients {r['tile_gap']:.3e} (tol "
+                     f"{LAMB_TILE_TOL}); against the one-process run's "
+                     f"update worst {updates[worst_update]:.3e} "
+                     f"({worst_update}; reported: bf16 gradients round "
+                     f"per process, and lamb's first update is sign(g)); "
+                     f"{r['zero1_leaves']} ZeRO-1 leaves; K3a launches "
+                     f"{r['k3a']}, K3b {r['k3b']}")
+    say("llama", f"lamb ZeRO-1 run in {time.perf_counter() - t0:.1f} s")
+
+
+def llama_dropout_remat(torch):
+    """(d) one BERT-tiny MLM step with dropout 0.1 on the card, with and
+    without remat: the same gradients (the masks are keyed, so the
+    recompute draws them again)."""
+    from distributed_pytorch_example_tpu_torch.models import BertBase
+    from distributed_pytorch_example_tpu_torch.train import (
+        TrainState,
+        build_train_step,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train.tasks import MLMTask
+
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(1, BERT_VOCAB, (4, BERT_SEQ), generator=gen)
+    out = {}
+    for remat in (False, True):
+        model = BertBase(model_dim=256, num_layers=2, num_heads=4,
+                         mlp_dim=512, dropout_rate=0.1, remat=remat,
+                         dtype=torch.bfloat16, logits_mode="hidden",
+                         device="cuda", seed=0)
+        state = TrainState(step=5, model=model,
+                           optimizer=make_optimizer(model, "sgd", 0.0))
+        step = build_train_step(MLMTask(BERT_VOCAB, BERT_MASK_ID), seed=1)
+        loss = float(step(state, {"tokens": tokens.to("cuda")})["loss"])
+        out[remat] = (loss, {n: p.grad.detach().float().clone()
+                             for n, p in model.named_parameters()})
+    (loss, want), (remat_loss, got) = out[False], out[True]
+    gaps = {n: ((got[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+            for n, g in want.items()}
+    worst = max(gaps, key=gaps.get)
+    equal = all(torch.equal(got[n], g) for n, g in want.items())
+    check(gaps[worst] <= REMAT_TOL,
+          f"llama: BERT-tiny dropout step, remat gradient of {worst} "
+          f"{gaps[worst]:.3e} off the step without remat")
+    say("llama", f"BERT-tiny (2 x 256, S {BERT_SEQ}, K1) MLM step with "
+                 f"dropout 0.1, remat against none: loss {remat_loss:.6f} vs "
+                 f"{loss:.6f}; gradients bit-equal {equal}, worst "
+                 f"||g - g_ref|| / ||g_ref|| {gaps[worst]:.3e} ({worst}; "
+                 f"tol {REMAT_TOL})")
+
+
+def rope_pool(torch, pk, table, lens, block_size):
+    """The pool's keys rotated by RoPE at the positions the table gives
+    them: row b's j-th block holds positions j * block_size + offset."""
+    from distributed_pytorch_example_tpu_torch.ops.rope import rope
+
+    out = pk.clone()
+    offsets = torch.arange(block_size, device=pk.device)
+    for b, pos in enumerate(lens.tolist()):
+        live = min(pos // block_size + 1, table.shape[1])
+        for j in range(live):
+            blk = int(table[b, j])
+            out[blk] = rope(pk[blk][None], j * block_size + offsets)[0]
+    return out
+
+
+def llama_paged(torch, bandwidth):
+    """(e) K2 at LLaMA's decode shape (fp32, 12 heads over 4 kv heads,
+    blocks of 16, 128 per row, pool 513) on RoPE-rotated keys, against
+    its plain version, then timed beside its bound and SDPA
+    (``enable_gqa``) on pre-gathered KV; returns K2's ``llama`` field."""
+    from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        paged_attention_reference,
+        paged_flash_decode,
+    )
+
+    N, KVH, H, mb = HEADS, LLAMA_KV_HEADS, HEAD_DIM, LLAMA_MAX_BLOCKS
+    q, pk, pv, table, lens = kernel_case(
+        torch, batch=SLOTS, heads=N, kv_heads=KVH, head_dim=H,
+        block_size=BLOCK_SIZE, max_blocks=mb, num_blocks=NUM_BLOCKS,
+        lens=LLAMA_LENS, dtype=torch.float32, seed=12)
+    pk = rope_pool(torch, pk, table, lens, BLOCK_SIZE)
+    q4, pos2 = q[:, None], lens[:, None]
+    got = paged_flash_decode(q, pk, pv, table, lens)
+    ref = paged_attention_reference(q4, pk, pv, table, pos2)[:, 0]
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(math.isfinite(err) and err <= 2e-5,
+          f"llama K2: max abs err {err:.3e} > tol 2e-05")
+    idx = table.long()
+    gk = pk[idx].reshape(SLOTS, -1, KVH, H).transpose(1, 2).contiguous()
+    gv = pv[idx].reshape(SLOTS, -1, KVH, H).transpose(1, 2).contiguous()
+    key_pos = torch.arange(mb * BLOCK_SIZE, device="cuda")
+    mask = (key_pos[None, :] <= lens[:, None])[:, None, None, :]
+    qh = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = {}
+    for key, fn in (
+        ("plain", lambda: paged_attention_reference(q4, pk, pv, table, pos2)),
+        ("kernel", lambda: paged_flash_decode(q, pk, pv, table, lens)),
+        ("kernel2", lambda: paged_flash_decode(q, pk, pv, table, lens)),
+        ("plain2", lambda: paged_attention_reference(q4, pk, pv, table,
+                                                     pos2)),
+        ("library", lambda: sdpa(qh, gk, gv, attn_mask=mask,
+                                 enable_gqa=True)),
+    ):
+        ms[key] = time_cold(torch, fn)
+    live_keys = sum(min(p, mb * BLOCK_SIZE - 1) + 1 for p in LLAMA_LENS)
+    nbytes = (2 * live_keys * KVH * H * 4 + 2 * SLOTS * N * H * 4
+              + SLOTS * mb * 4 + SLOTS * 4)
+    flops = 4 * live_keys * N * H
+    bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / _F32_PEAK * 1e3
+    field = {
+        "shape": f"B={SLOTS} N={N} KVH={KVH} H={H} fp32 bs={BLOCK_SIZE} "
+                 f"mb={mb} lens {list(LLAMA_LENS)}, RoPE'd keys",
+        "launches": None,  # filled from the serving run
+        "max_abs_err": err,
+        "ms": min(ms["kernel"], ms["kernel2"]),
+        "plain_ms": min(ms["plain"], ms["plain2"]),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ms["library"],
+    }
+    say("llama", f"paged_flash_decode {field['shape']}: max abs err "
+                 f"{err:.3e} (tol 2e-05: float32, summation order only); "
+                 f"kernel {ms['kernel']:.4f}/{ms['kernel2']:.4f} ms, plain "
+                 f"{ms['plain']:.4f}/{ms['plain2']:.4f} ms, library (SDPA "
+                 f"enable_gqa on pre-gathered KV) {ms['library']:.4f} ms, "
+                 f"bound {field['bound_ms']:.4f} ms ({nbytes} bytes, "
+                 f"{flops} flops)")
+    return field
+
+
+def llama_serve(torch):
+    """(e) LLaMA at full width served from random weights (float32, pool
+    513 x 16, 128 blocks a row, 8 slots, 16 requests), greedy and top-k
+    50; checks against the plain forward as phase 4 does GPT-2's. Returns
+    K2's launches."""
+    from distributed_pytorch_example_tpu_torch.models import Llama
+    from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        paged_flash_decode,
+    )
+    from distributed_pytorch_example_tpu_torch.serving import (
+        InferenceEngine,
+        Request,
+    )
+
+    model = Llama(decode=True, paged_num_blocks=NUM_BLOCKS,
+                  paged_block_size=BLOCK_SIZE,
+                  paged_max_blocks=LLAMA_MAX_BLOCKS, device="cuda", seed=0)
+    total, greedy = 0, None
+    for label, kw in (("greedy", dict(temperature=0.0)),
+                      ("sampled", dict(temperature=1.0, top_k=50))):
+        engine = InferenceEngine(model, num_slots=SLOTS, device="cuda", **kw)
+        engine.warmup()
+        torch.cuda.synchronize()
+        reset_counts()
+        report = engine.run(workload(Request, vocab=LLAMA_VOCAB))
+        torch.cuda.synchronize()
+        launches = paged_flash_decode.launches
+        m = report["metrics"]
+        statuses = {r["status"] for r in report["results"].values()}
+        check(statuses == {"done"} and m["completed"] == 16,
+              f"llama {label}: not every request completed: {statuses}")
+        check(launches > 0 and launches == m["decode_steps"] * LAYERS,
+              f"llama {label}: K2 launched {launches} times, want "
+              f"decode_steps {m['decode_steps']} x {LAYERS}")
+        say("llama", f"serve {label} " + json.dumps({
+            "metric": "serve_tokens_per_sec",
+            "value": round(m["tokens_per_sec"], 2), "unit": "tokens/sec",
+            "ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
+            "ttft_p99_ms": m["ttft_ms"]["p99"],
+            "tpot_p99_ms": m["tpot_ms"]["p99"],
+            "decode_tokens_per_sec": round(m["decode_tokens_per_sec"], 2),
+            "decode_steps": m["decode_steps"],
+            "generated_tokens": m["generated_tokens"],
+            "completed": m["completed"], "k2_launches": launches}))
+        total += launches
+        if label == "greedy":
+            greedy = report
+    check_against_plain(torch, model, greedy,
+                        plain=Llama(device="cuda", seed=0),
+                        vocab=LLAMA_VOCAB, phase="llama")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def llama(torch, smi_line, bandwidth):
+    """Phase 12; returns the K1 and K2 ``llama`` fields with their
+    launches on the training and serving paths."""
+    k1 = llama_flash(torch, bandwidth)
+    fwd, bwd = llama_train(torch, smi_line)
+    k1["fwd"][str(TRAIN_SEQ)]["launches"] = fwd
+    k1["bwd"][str(TRAIN_SEQ)]["launches"] = bwd
+    llama_cli()
+    llama_lamb(torch)
+    llama_dropout_remat(torch)
+    k2 = llama_paged(torch, bandwidth)
+    k2["launches"] = llama_serve(torch)
+    return k1, k2
+
+
 def free_port():
     import socket
 
@@ -2495,6 +3176,9 @@ def main() -> int:
             torch, smi_line)
         phase = "vision"
         vision(torch, smi_line)
+        phase = "llama"
+        k1_llama, k2["llama"] = llama(torch, smi_line, bandwidth)
+        k1_fwd["llama"], k1_bwd["llama"] = k1_llama["fwd"], k1_llama["bwd"]
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
@@ -2510,4 +3194,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--path-worker"]:
         sys.exit(path_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--llama-lamb-worker"]:
+        sys.exit(llama_lamb_worker(sys.argv[2]))
     sys.exit(main())

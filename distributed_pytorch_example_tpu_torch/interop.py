@@ -16,15 +16,19 @@ it into its JAX layout:
 - a bare parameter keeps its name (GPT-2's ``wpe`` and BERT's
   ``pos_embed``, both (1, max_len, D); BERT's (V,) ``mlm_bias``; ViT's
   ``cls_token`` and ``pos_embed``; the space-to-depth ResNet stem's
-  ``stem_conv_kernel``, kept in flax's HWIO layout);
+  ``stem_conv_kernel``, kept in flax's HWIO layout; LLaMA's RMSNorm
+  ``scale`` and its untied (D, V) ``lm_head``);
 - ``<stack>.layers.<i>`` <-> flax ``<stack>/layer_<i>`` (GPT-2's
-  ``decoder``, BERT's and ViT's ``encoder``); every other module keeps its
+  ``decoder``, BERT's and ViT's ``encoder``; LLaMA's blocks sit at the
+  top, ``layers.<i>`` <-> ``layer_<i>``); every other module keeps its
   name (SimpleNet's ``Dense_<i>``, the ResNet's ``stage<s>_block<b>`` and
   flax's auto-names inside a block, ``Conv_<i>`` / ``BatchNorm_<i>``).
 
 The tied heads need nothing of their own: GPT-2's and BERT's logits read
 the token table (``wte/embedding``, ``tok_embed/embedding``) the
-embedding lookup uses.
+embedding lookup uses. LLaMA's grouped-query ``k`` / ``v`` kernels are
+(D, kv_heads x head_dim), (768, 256) at its defaults; its SwiGLU
+``gate`` / ``up`` / ``down`` have no bias.
 
 Leaves come in the order ``jax.tree_util.tree_leaves`` walks the JAX
 tree (paths sorted), so the wire layer (``parallel/wire.py``) lays out

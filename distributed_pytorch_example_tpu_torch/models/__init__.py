@@ -1,5 +1,5 @@
-"""Models: SimpleNet, ResNet-18/50, ViT-B/16, BERT-base, GPT-2 and the
-shared transformer blocks.
+"""Models: SimpleNet, ResNet-18/50, ViT-B/16, BERT-base, GPT-2, LLaMA and
+the shared transformer blocks.
 
 ``get_model(name, **overrides)`` is the string registry the CLI uses,
 with the JAX package's names (its ``models/__init__.py``).
@@ -11,6 +11,12 @@ from torch import nn
 
 from distributed_pytorch_example_tpu_torch.models.bert import BertBase
 from distributed_pytorch_example_tpu_torch.models.gpt2 import GPT2
+from distributed_pytorch_example_tpu_torch.models.llama import (
+    Llama,
+    LlamaBlock,
+    RMSNorm,
+    SwiGluMlp,
+)
 from distributed_pytorch_example_tpu_torch.models.batchnorm import BatchNorm
 from distributed_pytorch_example_tpu_torch.models.mlp import SimpleNet
 from distributed_pytorch_example_tpu_torch.models.resnet import (
@@ -39,20 +45,20 @@ _REGISTRY = {
     ("vit-b16", "vit-b-16", "vit"): ViTB16,
     ("bert-base", "bert"): BertBase,
     ("gpt2", "gpt-2", "gpt2-124m"): GPT2,
+    ("llama", "llama-tiny"): Llama,
 }
 
 
 def get_model(name: str, **overrides: Any) -> nn.Module:
     """Build a model by registry name (the JAX package's names); any
-    other name (llama is not ported yet) raises
-    ValueError."""
+    other name raises ValueError."""
     key = name.lower().replace("_", "-")
     for names, cls in _REGISTRY.items():
         if key in names:
             return cls(**overrides)
     raise ValueError(
-        f"model {name!r} is unknown or not ported to the PyTorch package "
-        "yet; see ROADMAP.md queue 1"
+        f"model {name!r} is unknown; the registry holds "
+        f"{sorted(n for names in _REGISTRY for n in names)}"
     )
 
 
@@ -62,12 +68,16 @@ __all__ = [
     "BertBase",
     "BottleneckBlock",
     "GPT2",
+    "Llama",
+    "LlamaBlock",
     "MlpBlock",
     "MultiHeadAttention",
     "ResNet",
     "ResNet18",
     "ResNet50",
+    "RMSNorm",
     "SimpleNet",
+    "SwiGluMlp",
     "TransformerBlock",
     "TransformerStack",
     "ViTB16",

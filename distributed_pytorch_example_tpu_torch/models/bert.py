@@ -9,6 +9,10 @@ epsilon 1e-12. Compute in ``dtype`` (float32 or bfloat16) with float32
 parameters, as flax's ``dtype=``. Attention auto-selects the flash kernel
 (K1) on the card where its shapes allow (``use_flash=None``): at BERT's
 512 tokens and head_dim 64 every layer runs it forward and backward.
+``dropout_rate`` drops after the embedding LayerNorm and after each
+block's attention and MLP in training (masks keyed through
+:meth:`BertBase.fold_in`); ``remat`` recomputes each block in the
+backward pass.
 
 ``pad_token_id`` (real, padded corpora) masks the keys at pad positions
 out of every attention: ``kv_mask = tokens != pad_token_id`` streams
@@ -33,9 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_pytorch_example_tpu_torch.models.transformer import (
+    DropoutDraws,
     TransformerStack,
-    _not_in_slice,
     dense,
+    dropout,
     layer_norm,
     lecun_normal_,
     normal_,
@@ -66,8 +71,6 @@ class BertBase(nn.Module):
         **stack_kw,
     ):
         super().__init__()
-        if dropout_rate:
-            raise _not_in_slice("dropout (training)")
         if logits_mode not in ("full", "hidden"):
             raise ValueError(
                 f"logits_mode must be 'full' or 'hidden', got {logits_mode!r}"
@@ -77,6 +80,8 @@ class BertBase(nn.Module):
         self.num_layers, self.num_heads = num_layers, num_heads
         self.dtype, self.logits_mode = dtype, logits_mode
         self.pad_token_id = pad_token_id
+        self.dropout_rate = dropout_rate
+        self.draws = DropoutDraws(seed)
         with torch.device("meta"):
             self.tok_embed = nn.Embedding(vocab_size, model_dim)
             self.pos_embed = nn.Parameter(torch.empty(1, max_len, model_dim))
@@ -85,7 +90,7 @@ class BertBase(nn.Module):
                 num_layers, num_heads, model_dim // num_heads, model_dim,
                 mlp_dim, causal=False, prenorm=False,
                 layer_norm_epsilon=LN_EPS, dtype=dtype, use_flash=use_flash,
-                **stack_kw,
+                dropout_rate=dropout_rate, **stack_kw,
             )
             self.mlm_dense = nn.Linear(model_dim, model_dim)
             self.mlm_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
@@ -96,6 +101,10 @@ class BertBase(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.pos_embed.device
+
+    def fold_in(self, step: int) -> None:
+        """Key this train step's dropout masks from (seed, step)."""
+        self.draws.fold_in(step)
 
     def head_params(self):
         """Tied MLM-head weights for the fused loss: ((V, D) table, bias)."""
@@ -122,10 +131,13 @@ class BertBase(nn.Module):
         seq = tokens.shape[1]
         x = self.tok_embed(tokens).to(dt) + self.pos_embed[:, :seq].to(dt)
         x = layer_norm(self.embed_ln, x, dt)
+        draw = (self.draws.next() if self.training and self.dropout_rate
+                else None)
+        x = dropout(x, self.dropout_rate, draw, (0, 0))
         kv_mask = None
         if self.pad_token_id is not None:
             kv_mask = tokens != self.pad_token_id
-        x = self.encoder(x, kv_mask=kv_mask)
+        x = self.encoder(x, kv_mask=kv_mask, draw=draw)
         x = F.gelu(dense(self.mlm_dense, x, dt), approximate="tanh")
         x = layer_norm(self.mlm_ln, x, dt)
         if self.logits_mode == "hidden":

@@ -5,7 +5,11 @@ blocks with causal attention -> final LN (eps 1e-5) -> logits via the tied
 token-embedding matrix. Compute in ``dtype`` (float32 or bfloat16) with
 float32 parameters, as flax's ``dtype=``; without pipeline stages and
 without MoE. Attention auto-selects the flash kernel (K1) on the card
-where its shapes allow (``use_flash=None``).
+where its shapes allow (``use_flash=None``). ``dropout_rate`` drops after
+the embeddings and after each block's attention and MLP in training
+(``transformer.dropout``; the train step keys the masks through
+:meth:`GPT2.fold_in`), and ``remat`` recomputes each block in the backward
+pass.
 
 ``logits_mode="hidden"`` returns the final hidden states instead of
 logits, for the fused chunked cross-entropy (``ops/chunked_ce.py``), which
@@ -28,8 +32,10 @@ import torch
 from torch import nn
 
 from distributed_pytorch_example_tpu_torch.models.transformer import (
+    DropoutDraws,
     TransformerStack,
     _not_in_slice,
+    dropout,
     layer_norm,
     normal_,
     tied_head_logits,
@@ -66,8 +72,6 @@ class GPT2(nn.Module):
             raise ValueError(
                 "paged_num_blocks > 0 (paged KV cache) requires decode=True"
             )
-        if dropout_rate:
-            raise _not_in_slice("dropout (training)")
         if pipe_axis is not None:
             raise _not_in_slice("pipeline parallelism (pipe_axis)")
         if paged_verify:
@@ -86,6 +90,8 @@ class GPT2(nn.Module):
         self.paged_num_blocks = paged_num_blocks
         self.paged_block_size = paged_block_size
         self.paged_max_blocks = paged_max_blocks
+        self.dropout_rate = dropout_rate
+        self.draws = DropoutDraws(seed)
         # build without storage, then materialise once on the device
         with torch.device("meta"):
             self.wte = nn.Embedding(vocab_size, model_dim)
@@ -96,7 +102,8 @@ class GPT2(nn.Module):
                 use_flash=use_flash, decode=decode,
                 paged_num_blocks=paged_num_blocks,
                 paged_block_size=paged_block_size,
-                paged_max_blocks=paged_max_blocks, **stack_kw,
+                paged_max_blocks=paged_max_blocks, dropout_rate=dropout_rate,
+                **stack_kw,
             )
             self.final_ln = nn.LayerNorm(model_dim, eps=1e-5)
         self.to_empty(device=dev)
@@ -105,6 +112,10 @@ class GPT2(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.wpe.device
+
+    def fold_in(self, step: int) -> None:
+        """Key this train step's dropout masks from (seed, step)."""
+        self.draws.fold_in(step)
 
     def head_params(self):
         """Tied LM-head weights for the fused loss: ((V, D) table, bias)."""
@@ -137,7 +148,11 @@ class GPT2(nn.Module):
         else:
             pos = self.wpe[:, :seq]
         x = self.wte(tokens).to(self.dtype) + pos.to(self.dtype)
-        x = self.decoder(x, page_table=page_table, row_lens=row_lens)
+        draw = (self.draws.next() if self.training and self.dropout_rate
+                else None)
+        x = dropout(x, self.dropout_rate, draw, (0, 0))
+        x = self.decoder(x, page_table=page_table, row_lens=row_lens,
+                         draw=draw)
         x = layer_norm(self.final_ln, x, self.dtype)
         if self.logits_mode == "hidden":
             return x

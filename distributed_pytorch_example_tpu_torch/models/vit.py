@@ -12,8 +12,10 @@ table's length when the model is built, so the model takes
 Attention goes through ``ops.attention.dot_product_attention`` with
 ``use_flash=None``: 197 tokens are no multiple of 128, so the plain path
 runs, as XLA's does in JAX. Compute is in ``dtype`` with float32
-parameters. Dropout (``dropout_rate`` > 0) is not ported and is refused,
-as BERT's is.
+parameters. ``dropout_rate`` drops after the position embedding and after
+each block's attention and MLP in training (masks keyed through
+:meth:`VisionTransformer.fold_in`); ``remat`` recomputes each block in the
+backward pass.
 
 Parameter names are flax's (``patch_embed``, ``cls_token``, ``pos_embed``,
 ``encoder.layers.<i>`` = ``encoder/layer_<i>``, ``final_ln``, ``head``).
@@ -28,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_pytorch_example_tpu_torch.models.transformer import (
+    DropoutDraws,
     TransformerStack,
-    _not_in_slice,
+    dropout,
     layer_norm,
     lecun_normal_,
     normal_,
@@ -58,14 +61,14 @@ class VisionTransformer(nn.Module):
         **stack_kw,
     ):
         super().__init__()
-        if dropout_rate:
-            raise _not_in_slice("dropout (training)")
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} is not a multiple of "
                              f"patch_size {patch_size}")
         dev = resolve_device(device)
         self.num_classes, self.patch_size = num_classes, patch_size
         self.model_dim, self.image_size, self.dtype = model_dim, image_size, dtype
+        self.dropout_rate = dropout_rate
+        self.draws = DropoutDraws(seed)
         tokens = 1 + (image_size // patch_size) ** 2
         with torch.device("meta"):
             self.patch_embed = nn.Conv2d(3, model_dim, patch_size,
@@ -76,7 +79,7 @@ class VisionTransformer(nn.Module):
                 num_layers, num_heads, model_dim // num_heads, model_dim,
                 mlp_dim, causal=False, prenorm=True,
                 layer_norm_epsilon=LN_EPS, dtype=dtype, use_flash=use_flash,
-                **stack_kw,
+                dropout_rate=dropout_rate, **stack_kw,
             )
             self.final_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
             self.head = nn.Linear(model_dim, num_classes)
@@ -86,6 +89,10 @@ class VisionTransformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.pos_embed.device
+
+    def fold_in(self, step: int) -> None:
+        """Key this train step's dropout masks from (seed, step)."""
+        self.draws.fold_in(step)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers: lecun-normal patch and head kernels with
@@ -115,7 +122,10 @@ class VisionTransformer(nn.Module):
                 f"({self.pos_embed.shape[1] - 1} patches)")
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
-        x = self.encoder(x)
+        draw = (self.draws.next() if self.training and self.dropout_rate
+                else None)
+        x = dropout(x, self.dropout_rate, draw, (0, 0))
+        x = self.encoder(x, draw=draw)
         x = layer_norm(self.final_ln, x, dt)
         return F.linear(x[:, 0].float(), self.head.weight, self.head.bias)
 

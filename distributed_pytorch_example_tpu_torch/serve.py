@@ -3,15 +3,17 @@
 The single-replica path of the JAX package's ``serve.py``, with the same
 flags and defaults plus ``--device`` (default ``cuda``): an
 :class:`InferenceEngine` over a randomly initialised GPT-2 of CLI-chosen
-size, driven by a seeded Poisson open-loop workload of mixed prompt and
-output lengths. stdout gets exactly ONE JSON line with the same keys as
+size (``--family gpt2``) or LLaMA (``--family llama``: RoPE, RMSNorm,
+SwiGLU, ``--num-kv-heads`` kv heads), driven by a seeded Poisson
+open-loop workload of mixed prompt and output lengths. stdout gets exactly ONE JSON line with the same keys as
 the JAX package's ``serve.py``; per-request detail lines go to stderr::
 
     python -m distributed_pytorch_example_tpu_torch.serve --requests 16 --rate 4
 
-Not in this slice, and refused with a pointer to ROADMAP.md: ``--family
-llama``, ``--mesh``, ``--auto-mesh``, ``--replicas > 1``,
-``--spec-tokens`` and ``--publish-dir``.
+Both families build ``mlp_dim = 2 * model_dim``, as the JAX ``serve.py``
+does. Not in this slice, and refused with a pointer to ROADMAP.md:
+``--mesh``, ``--auto-mesh``, ``--replicas > 1``, ``--spec-tokens`` and
+``--publish-dir``.
 """
 
 from __future__ import annotations
@@ -61,19 +63,34 @@ def build_requests(args):
     return reqs
 
 
-def build_engine(args, trace):
-    """Paged GPT-2 (random weights from ``--seed``) + its engine."""
-    from distributed_pytorch_example_tpu_torch.models.gpt2 import GPT2
-    from distributed_pytorch_example_tpu_torch.serving import InferenceEngine
+def build_model(args):
+    """The paged decode model of ``--family`` (random weights from
+    ``--seed``) on ``--device``."""
+    from distributed_pytorch_example_tpu_torch.models import GPT2, Llama
 
-    model = GPT2(
+    kw = dict(
         vocab_size=args.vocab_size, max_len=args.max_len,
         model_dim=args.model_dim, num_layers=args.num_layers,
         num_heads=args.num_heads, mlp_dim=2 * args.model_dim,
-        decode=True, paged_num_blocks=args.num_blocks,
+    )
+    if args.family == "llama":
+        cls = Llama
+        kw["num_kv_heads"] = args.num_kv_heads or args.num_heads
+    else:
+        cls = GPT2
+    return cls(
+        **kw, decode=True, paged_num_blocks=args.num_blocks,
         paged_block_size=args.block_size, paged_max_blocks=args.max_blocks,
         device=args.device, seed=args.seed,
     )
+
+
+def build_engine(args, trace, model=None):
+    """The engine over ``model`` (default :func:`build_model`)."""
+    from distributed_pytorch_example_tpu_torch.serving import InferenceEngine
+
+    if model is None:
+        model = build_model(args)
     return InferenceEngine(
         model, num_slots=args.slots, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, trace=trace, mode=args.mode,
@@ -132,7 +149,7 @@ def _not_in_slice(parser, flag):
     )
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--family", default="gpt2",
                         choices=("gpt2", "llama"))
@@ -189,13 +206,17 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (default cuda; "
                         "'cpu' runs the plain versions of the kernels)")
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
     if args.requests < 1:
         parser.error("--requests must be >= 1")
     if args.max_blocks * args.block_size > args.max_len:
         parser.error("--max-blocks * --block-size must be <= --max-len")
     for flag, asked in (
-        ("--family llama", args.family == "llama"),
         ("--mesh", bool(args.mesh)),
         ("--auto-mesh", args.auto_mesh),
         ("--replicas > 1", args.replicas != 1),

@@ -112,9 +112,10 @@ def _percentiles(samples: Sequence[float]) -> Dict[str, float]:
 class InferenceEngine:
     """Continuous-batching serving loop over one paged-decode model.
 
-    ``model`` must be a ``GPT2`` built with ``decode=True`` and the paged
-    fields set (``paged_num_blocks`` / ``paged_block_size`` /
-    ``paged_max_blocks``); it holds its weights. The engine moves it to
+    ``model`` must be a ``GPT2`` or a ``Llama`` built with ``decode=True``
+    and the paged fields set (``paged_num_blocks`` / ``paged_block_size``
+    / ``paged_max_blocks``); it holds its weights and its pool (LLaMA's of
+    its kv heads, with RoPE at each row's ``row_lens``). The engine moves it to
     ``device`` — ``cuda`` unless the caller passes ``device="cpu"``; with
     no card that raises.
 

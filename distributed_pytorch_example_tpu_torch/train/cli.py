@@ -5,7 +5,9 @@
 With no flags it runs the reference's default config (reference
 train.py:214-218): SimpleNet on 10,000 synthetic samples, 10 epochs,
 per-replica batch 64, Adam at lr 1e-3, train:val 10:1, on the card.
-``--model gpt2 --dataset synthetic-tokens`` trains GPT-2 124M and
+``--model gpt2 --dataset synthetic-tokens`` trains GPT-2 124M,
+``--model llama`` the JAX package's LLaMA (125M, vocab 32000, ``--seq-len``
+at most 2048, RoPE and 12 query heads over 4 kv heads) and
 ``--model bert-base --dataset synthetic-tokens`` BERT-base with the
 masked-LM task (vocab 30522, ``[MASK]`` = 103, ``--seq-len`` at most 512;
 ``--pad-token-id`` masks pad keys out of attention and pad positions out
@@ -29,7 +31,8 @@ shards the optimizer state across the processes, ``--wire`` compresses the
 gradient collectives, ``--overlap-buckets`` fuses them into buckets (on
 the card, the ring kernels carry them), and ``--grad-accum k`` applies the
 optimizer every k-th step to the mean of k steps' gradients (the JAX CLI's
-``optax.MultiSteps``).
+``optax.MultiSteps``). ``--remat`` recomputes each transformer block in
+the backward pass (the other models ignore it, as in JAX).
 Checkpoints go to ``--checkpoint-dir`` (default ``./checkpoints``): best
 and latest at each epoch's end, ``latest`` every ``--save-every-steps``
 batches too, and ``metrics.jsonl``. ``--resume`` takes a checkpoint of
@@ -104,11 +107,15 @@ _TOKENS = ("synthetic-tokens", "tokens-file")
 # the JAX CLI's image datasets (its image-shards waits for ROADMAP item 13)
 _IMAGES = ("synthetic-image", "cifar10-synthetic", "cifar10", "digits")
 _VISION = ("resnet18", "resnet50", "vit-b16")
+_LLAMA = ("llama", "llama-tiny")
 _DATASETS = {"mlp": ("synthetic",), "gpt2": _TOKENS, "bert-base": _TOKENS,
+             **dict.fromkeys(_LLAMA, _TOKENS),
              **dict.fromkeys(_VISION, _IMAGES)}
-_VOCAB = {"gpt2": 50257, "bert-base": 30522}  # JAX train.py:46-56
-_MAX_SEQ = {"gpt2": 1024, "bert-base": 512}
+# JAX train.py:46-56
+_VOCAB = {"gpt2": 50257, "bert-base": 30522, **dict.fromkeys(_LLAMA, 32000)}
+_MAX_SEQ = {"gpt2": 1024, "bert-base": 512, **dict.fromkeys(_LLAMA, 2048)}
 _LM = tuple(_MAX_SEQ)
+_TRANSFORMERS = ("vit-b16",) + _LM
 MASK_TOKEN_ID = 103  # BERT's [MASK] (JAX train.py:101-106)
 
 
@@ -169,8 +176,10 @@ def build_model(args, device: torch.device,
               else torch.float32, device=device, seed=args.seed)
     if args.model in ("mlp",) + _VISION:
         kw["num_classes"] = args.num_classes
-    if args.model in ("vit-b16", "gpt2", "bert-base"):
+    if args.model in _TRANSFORMERS:
         kw["use_flash"] = None if args.flash == "auto" else args.flash == "on"
+        if args.remat:
+            kw["remat"] = True
     if args.model == "vit-b16":
         kw["image_size"] = image_size or args.image_size
     if args.model in _LM:
@@ -204,13 +213,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error(f"--model {args.model} trains on --dataset "
                      f"{'|'.join(_DATASETS[args.model])}, not "
                      f"{args.dataset!r}")
-    if args.optimizer == "adafactor":
-        parser.error("--optimizer adafactor is not ported yet (ROADMAP.md "
-                     "queue 1, item 7)")
-    if args.optimizer == "lamb" and (args.zero1 or args.wire != "none"):
-        parser.error("--optimizer lamb under --zero1 or --wire is not "
-                     "ported yet: its per-leaf norms span every rank's tile "
-                     "(ROADMAP.md queue 1, item 7)")
+    if args.optimizer == "adafactor" and (args.zero1 or args.wire != "none"):
+        parser.error("--optimizer adafactor under --zero1 or --wire is not "
+                     "ported yet: its factored statistics span every rank's "
+                     "tile (ROADMAP.md queue 1, item 7)")
     if args.augment != "none" and args.dataset not in _IMAGES:
         parser.error(f"--augment only applies to image datasets, not "
                      f"{args.dataset!r}")
@@ -268,7 +274,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     logger.info("Dataset size: %d, batches per epoch: %d", len(train_ds),
                 len(train_loader))
     optimizer = make_optimizer(
-        model.parameters(), args.optimizer, args.lr,
+        model, args.optimizer, args.lr,
         schedule=args.schedule, warmup_steps=args.warmup_steps,
         # the schedule advances once per OPTIMIZER step; with accumulation
         # that is every k-th step

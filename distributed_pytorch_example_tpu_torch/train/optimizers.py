@@ -3,31 +3,38 @@
 The reference trains with bare Adam at a fixed lr (reference
 train.py:249); that stays the default. The factory composes, as the JAX
 package does from optax, global-norm gradient clipping -> adam | adamw |
-sgd (momentum) | lamb under a constant, cosine or linear schedule with
-linear warmup. Here the optimizer is ``torch.optim``'s (lamb is
-:class:`Lamb`, ``optax.lamb`` as a ``torch.optim.Optimizer``) and the
-schedule a ``LambdaLR`` whose factor reproduces the optax schedule step
-for step: optimizer update ``t`` (from 0) runs at ``schedule(t)``, as
-optax's update count does.
+sgd (momentum) | lamb | adafactor under a constant, cosine or linear
+schedule with linear warmup. Here the optimizer is ``torch.optim``'s (lamb
+is :class:`Lamb`, ``optax.lamb`` as a ``torch.optim.Optimizer``, and
+adafactor :class:`Adafactor`, ``optax.adafactor``) and the schedule a
+``LambdaLR`` whose factor reproduces the optax schedule step for step:
+optimizer update ``t`` (from 0) runs at ``schedule(t)``, as optax's
+update count does.
 
 ``every_k > 1`` is ``optax.MultiSteps`` (the JAX CLI's ``--grad-accum``):
 every step accumulates the running mean of the gradients, and every k-th
 applies the update with it (clipped by its own global norm) and advances
 the schedule; the other steps leave the parameters, the moments and the
-schedule as they were. adafactor is not in this slice and raises.
+schedule as they were.
 
 :class:`ShardedUpdate` is the ZeRO-1 update (the JAX step's sharded optax
 update plus its re-replication gather): the optimizer keeps state only for
 this rank's tile of every leaf the partitioner shards, and full state for
-the rest.
+the rest. Lamb's trust ratio there takes whole-leaf norms (one all-reduce
+a step); adafactor, whose factored statistics are row and column means
+of the whole leaf, is refused under ZeRO-1 (ROADMAP.md item 7).
 
 Checkpoints carry the optimizer as the optax state tree of the same
 configuration (:meth:`Optimizer.state_tree`, :meth:`Optimizer.
 load_state_tree`): adam ``{'0': {count, mu, nu}, '1': {}}``, adamw one
 more ``{}`` (decayed weights), lamb two more (decayed weights, trust
 ratio), sgd ``{'0': {trace}, '1': {}}``; a schedule's state is
-``{count}`` in place of the last ``{}``; clipping wraps the chain as
-``{'0': {}, '1': chain}``; ``every_k > 1`` wraps it in ``optax.MultiSteps``
+``{count}`` in place of the last ``{}``; adafactor ``{'0': {count,
+v_row, v_col, v}, '1': {}, '2': <lr>, '3': {}, ['4': {}], <last>: {}}``
+(block clipping, the learning rate, which holds the schedule's
+``{count}``, the parameter scale, decayed weights when ``weight_decay`` is
+set, the sign flip); clipping wraps the chain as ``{'0': {}, '1':
+chain}``; ``every_k > 1`` wraps it in ``optax.MultiSteps``
 (``mini_step``, ``gradient_step``, ``inner_opt_state``, ``acc_grads``,
 ``skip_state``). Every count is the number of applied updates (the
 ``LambdaLR``'s ``last_epoch``; torch keeps Adam's as a float per
@@ -42,7 +49,8 @@ are sliced back out on load.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 
@@ -114,13 +122,16 @@ class Lamb(torch.optim.Optimizer):
     count ``step`` (a float on the CPU), as torch's Adam keeps them. The
     norms stay on the device: no host sync.
 
-    Per-leaf norms need whole leaves, so under ZeRO-1 (tiles of a leaf on
-    several ranks) :class:`ShardedUpdate` refuses it."""
+    Per-leaf norms need whole leaves: under ZeRO-1 (tiles of a leaf on
+    several ranks) :class:`ShardedUpdate` sets ``leaf_norms``, which maps
+    the tiles' norms to their whole leaves' (one all-reduce a step)."""
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-6, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay))
+        # (params, ||p|| per param, ||u|| per param) -> whole-leaf norms
+        self.leaf_norms: Optional[Callable] = None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -158,10 +169,122 @@ class Lamb(torch.optim.Optimizer):
                                     alpha=group["weight_decay"])
             p_norm = torch.stack(torch._foreach_norm(params))
             u_norm = torch.stack(torch._foreach_norm(updates))
+            if self.leaf_norms is not None:
+                p_norm, u_norm = self.leaf_norms(params, p_norm, u_norm)
             ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0,
                                 p_norm / u_norm)
             for p, u, r in zip(params, updates, ratio.unbind()):
                 p.add_(u * r, alpha=-group["lr"])
+        return None
+
+
+# optax.adafactor's defaults
+_DECAY_RATE = 0.8
+_MIN_DIM_TO_FACTOR = 128
+_CLIPPING_THRESHOLD = 1.0
+_MIN_SCALE = 1e-3
+_EPS = 1e-30
+
+
+def _factored_dims(shape):
+    """optax's ``_factored_dims``: the (second largest, largest) axes of a
+    leaf whose two largest dims are both >= 128, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr, weight_decay_rate=wd or None)`` at optax's
+    defaults, as a torch optimizer, leaf by leaf in the leaf's JAX layout:
+
+    - ``scale_by_factored_rms``: with decay ``1 - (t + 1)^-0.8`` at update
+      t (from 0) and ``g² + 1e-30``, a leaf whose two largest dims are both
+      >= 128 keeps the row and column means of that (``v_row`` without the
+      largest axis d0, ``v_col`` without the second largest d1) and scales
+      g by ``(v_row / mean(v_row))^-1/2`` along d0 and ``v_col^-1/2``
+      along d1; any other leaf keeps the full ``v`` and scales by
+      ``v^-1/2``;
+    - block clipping: u / max(1, rms(u));
+    - ``* lr``, then ``* max(rms(p), 1e-3)`` (the parameter scale);
+    - ``+ wd * p`` when ``weight_decay`` is set (after the lr: optax's
+      order), then ``p -= u``. No momentum.
+
+    The statistics are kept in the JAX layout (``v_row`` / ``v_col`` /
+    ``v``, optax's placeholders of shape (1,) where a leaf does not use
+    them) and the update count as ``step`` (a float on the CPU).
+    ``perms`` maps a parameter to the dimension order of its JAX leaf (a
+    ``Linear`` weight (out, in) is a ``Dense`` kernel (in, out): (1, 0));
+    :func:`make_optimizer` fills it from the model, and a parameter
+    without an entry is its own layout."""
+
+    def __init__(self, params, lr: float = 1e-3, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.perms: Dict[torch.Tensor, Optional[tuple]] = {}
+
+    def jax_view(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (shaped like ``p``) in ``p``'s JAX layout: a view."""
+        perm = self.perms.get(p)
+        return t if perm is None else t.permute(perm)
+
+    @staticmethod
+    def init_state(shape) -> Dict[str, tuple]:
+        """optax's initial shapes of ``v_row``, ``v_col`` and ``v`` for a
+        leaf of JAX shape ``shape``."""
+        dims = _factored_dims(tuple(shape))
+        if dims is None:
+            return {"v_row": (1,), "v_col": (1,), "v": tuple(shape)}
+        d1, d0 = dims
+        return {"v_row": tuple(np.delete(shape, d0)),
+                "v_col": tuple(np.delete(shape, d1)), "v": (1,)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adafactor.step takes no closure")
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                w = self.jax_view(p, p)
+                g = self.jax_view(p, p.grad).float()
+                st = self.state[p]
+                if "step" not in st:
+                    st["step"] = torch.tensor(0.0)
+                    for key, shape in self.init_state(w.shape).items():
+                        st[key] = torch.zeros(shape, device=p.device)
+                # optax's decay schedule, in float32
+                t = (st["step"] + 1).float()
+                decay = 1.0 - t.pow(-_DECAY_RATE)
+                rate, keep = float(decay), float(1.0 - decay)
+                sq = g.square() + _EPS
+                dims = _factored_dims(tuple(w.shape))
+                if dims is not None:
+                    d1, d0 = dims
+                    v_row = st["v_row"].mul_(rate).add_(
+                        sq.mean(dim=d0) * keep)
+                    v_col = st["v_col"].mul_(rate).add_(
+                        sq.mean(dim=d1) * keep)
+                    reduced = d1 - 1 if d1 > d0 else d1
+                    row = (v_row / v_row.mean(dim=reduced, keepdim=True)
+                           ).pow(-0.5)
+                    u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+                else:
+                    v = st["v"].mul_(rate).add_(sq * keep)
+                    u = g * v.pow(-0.5)
+                rms_u = u.square().mean().sqrt()
+                u = u / torch.clamp(rms_u / _CLIPPING_THRESHOLD, min=1.0)
+                u = u * lr
+                rms_p = w.float().square().mean().sqrt()
+                u = u * torch.where(rms_p <= _MIN_SCALE, _MIN_SCALE, rms_p)
+                if wd:
+                    u = u + wd * w
+                w.sub_(u.to(w.dtype))
+                st["step"] += 1
         return None
 
 
@@ -199,6 +322,8 @@ class Optimizer:
             raise RuntimeError("rebind after an optimizer step")
         opt = self.optimizer
         self.optimizer = type(opt)(list(params), **opt.defaults)
+        if isinstance(opt, Adafactor):
+            self.optimizer.perms = opt.perms
         self._acc, self._mini_step = None, 0
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer,
                                                            self._factor)
@@ -265,18 +390,29 @@ class Optimizer:
         return self.scheduler.last_epoch
 
     def _slots(self) -> Dict[str, str]:
-        """optax moment name -> torch state key."""
+        """optax moment name -> torch state key (of moments shaped like
+        the parameter; adafactor's statistics are not)."""
         if isinstance(self.optimizer, torch.optim.SGD):
             return {"trace": "momentum_buffer"}
+        if isinstance(self.optimizer, Adafactor):
+            return {}
         return {"mu": "exp_avg", "nu": "exp_avg_sq"}
 
     def _chain(self, first: dict, count: int) -> dict:
         parts = [first]
-        if isinstance(self.optimizer, torch.optim.AdamW):
+        sched = {"count": _i32(count)} if self.scheduled else {}
+        if isinstance(self.optimizer, Adafactor):
+            # block clip, learning rate, parameter scale, [decayed weights],
+            # sign flip
+            parts += [{}, sched, {}]
+            if self.optimizer.defaults["weight_decay"]:
+                parts.append({})
+            sched = {}
+        elif isinstance(self.optimizer, torch.optim.AdamW):
             parts.append({})  # add_decayed_weights
         elif isinstance(self.optimizer, Lamb):
             parts += [{}, {}]  # add_decayed_weights, scale_by_trust_ratio
-        parts.append({"count": _i32(count)} if self.scheduled else {})
+        parts.append(sched)
         inner = {str(i): part for i, part in enumerate(parts)}
         if self.grad_clip_norm:
             inner = {"0": {}, "1": inner}  # clip_by_global_norm: no state
@@ -291,6 +427,15 @@ class Optimizer:
         first: dict = {}
         if not isinstance(self.optimizer, torch.optim.SGD):
             first["count"] = _i32(count)
+        if isinstance(self.optimizer, Adafactor):
+            # the statistics live in the JAX layout already
+            inits = [Adafactor.init_state(shape) for shape
+                     in layout.full_shapes()]
+            for name in ("v_row", "v_col", "v"):
+                first[name] = layout.tree([
+                    state[t][name] if name in state.get(t, {})
+                    else torch.zeros(init[name], device=t.device)
+                    for t, init in zip(layout.targets, inits)])
         for name, key in self._slots().items():
             moments = [state.get(t, {}).get(key) for t in layout.targets]
             moments = [m if m is not None
@@ -331,11 +476,16 @@ class Optimizer:
             _expect_keys(tree, want.keys(), "opt_state (clipped)")
             tree, want = tree["1"], want["1"]
         _expect_keys(tree, want.keys(), "opt_state chain")
-        first, last = tree["0"], tree[str(len(want) - 1)]
+        adafactor = isinstance(self.optimizer, Adafactor)
+        first = tree["0"]
+        # where the schedule's count sits: adafactor's learning-rate part
+        # ('2'), the chain's last part otherwise
+        last = tree["2" if adafactor else str(len(want) - 1)]
         names = list(self._slots())
+        stats = ["v_row", "v_col", "v"] if adafactor else []
         _expect_keys(first, names if isinstance(self.optimizer,
                                                 torch.optim.SGD)
-                     else ["count"] + names, "opt_state/0")
+                     else ["count"] + names + stats, "opt_state/0")
         _expect_keys(last, ["count"] if self.scheduled else [],
                      "the schedule's state")
         count = None
@@ -344,6 +494,19 @@ class Optimizer:
         elif "count" in last:
             count = int(last["count"])
         moments = {name: layout.flat(first[name]) for name in names}
+        factored = {}
+        if adafactor:
+            inits = [Adafactor.init_state(shape) for shape
+                     in layout.full_shapes()]
+            for name in stats:
+                values = [_lookup(first[name], leaf.path)
+                          for leaf in layout.leaves]
+                for leaf, value, init in zip(layout.leaves, values, inits):
+                    if tuple(value.shape) != init[name]:
+                        raise ValueError(
+                            f"checkpoint {name} {leaf.key}: shape "
+                            f"{tuple(value.shape)}, want {init[name]}")
+                factored[name] = values
         if check_only:
             return
         moments = {name: layout.from_full(m) for name, m in moments.items()}
@@ -352,6 +515,9 @@ class Optimizer:
             st = self.optimizer.state[target]
             for name, key in self._slots().items():
                 st[key] = moments[name][i].to(target.device, target.dtype)
+            for name, values in factored.items():
+                st[name] = interop.as_tensor(values[i]).to(
+                    target.device, torch.float32).clone()
             if not sgd:
                 group = next(g for g in self.optimizer.param_groups
                              if any(p is target for p in g["params"]))
@@ -505,11 +671,11 @@ class ShardedUpdate:
         else:
             by_path = dict.fromkeys(shapes)
         self.dims = [by_path[leaf.key] for leaf in self.leaves]
-        if isinstance(optimizer.optimizer, Lamb) and any(
+        if isinstance(optimizer.optimizer, Adafactor) and any(
                 d is not None for d in self.dims):
             raise _not_in_slice(
-                "lamb under ZeRO-1 (its per-leaf norms span every rank's "
-                "tile)")
+                "adafactor under ZeRO-1 (its factored statistics are row "
+                "and column means of the whole leaf, item 7)")
         self.partitioner = partitioner
         self.rank, self.world = rank, world
         self.tiles: List[Optional[torch.Tensor]] = []
@@ -526,7 +692,28 @@ class ShardedUpdate:
         optimizer.rebind(t if t is not None else p
                          for t, p in zip(self.tiles, self.params))
         optimizer.norm_fn = self.global_norm
+        if isinstance(optimizer.optimizer, Lamb):
+            optimizer.optimizer.leaf_norms = self.whole_leaf_norms
         self.optimizer = optimizer
+
+    def whole_leaf_norms(self, params, p_norm: torch.Tensor,
+                         u_norm: torch.Tensor):
+        """Lamb's per-parameter norms of ``params`` (tiles and replicated
+        parameters) as the norms of their whole leaves: the tiles' squared
+        parameter and update norms, packed in one float32 tensor, are
+        summed across ranks in one all-reduce; a replicated leaf's norms
+        are already whole and count once."""
+        tiles = {id(t) for t in self.tiles if t is not None}
+        idx = [i for i, p in enumerate(params) if id(p) in tiles]
+        if not idx or self.world == 1:
+            return p_norm, u_norm
+        sel = torch.tensor(idx, device=p_norm.device)
+        sq = torch.cat([p_norm[sel], u_norm[sel]]).float().square()
+        sq = distributed.all_reduce_sum_(sq).sqrt()
+        p_norm, u_norm = p_norm.clone(), u_norm.clone()
+        p_norm[sel] = sq[:len(idx)].to(p_norm.dtype)
+        u_norm[sel] = sq[len(idx):].to(u_norm.dtype)
+        return p_norm, u_norm
 
     def local_grads(self) -> List[torch.Tensor]:
         """This rank's float32 gradients, JAX layout and order (zeros for
@@ -672,7 +859,7 @@ class ShardedLayout(StateLayout):
 
 
 def make_optimizer(
-    params: Iterable[torch.Tensor],
+    params: Union[Iterable[torch.Tensor], torch.nn.Module],
     name: str = "adam",
     lr: float = 1e-3,
     *,
@@ -684,11 +871,15 @@ def make_optimizer(
     momentum: float = 0.9,
     every_k: int = 1,
 ) -> Optimizer:
-    """Compose clip -> optimizer(schedule) over ``params``."""
+    """Compose clip -> optimizer(schedule) over ``params``: tensors, or a
+    model (its parameters). adafactor takes only a model: it keeps its
+    statistics in each leaf's JAX layout, as its checkpoints and optax
+    do."""
     sched = make_schedule(schedule, lr, warmup_steps=warmup_steps,
                           total_steps=total_steps)
     name = name.lower()
-    params = list(params)
+    model = params if isinstance(params, torch.nn.Module) else None
+    params = list(params.parameters() if model is not None else params)
     if name == "adam":
         # optax.adam defaults: b1 0.9, b2 0.999, eps 1e-8
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -702,7 +893,15 @@ def make_optimizer(
         opt = Lamb(params, lr=lr, betas=(0.9, 0.999), eps=1e-6,
                    weight_decay=weight_decay)
     elif name == "adafactor":
-        raise _not_in_slice(f"optimizer {name!r}")
+        # optax.adafactor(lr, weight_decay_rate=wd or None) at its defaults
+        if model is None:
+            raise ValueError("adafactor needs the model, not its parameters: "
+                             "make_optimizer(model, 'adafactor', ...) keeps "
+                             "its statistics in each leaf's JAX layout")
+        opt = Adafactor(params, lr=lr, weight_decay=weight_decay)
+        named = dict(model.named_parameters())
+        opt.perms = {named[leaf.name]: leaf.perm
+                     for leaf in interop.flax_leaves(model)}
     else:
         raise ValueError(f"Unknown optimizer {name!r}")
     if every_k > 1:

@@ -28,7 +28,6 @@ UNSERVED = {
     "moe_every": 2,
     "moe_top_k": None,
     "partition": "dp",
-    "remat": False,
     "profile_dir": None,
     "profile_steps": "10,13",
     "telemetry_every": 0,
@@ -58,12 +57,13 @@ def add_reference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The framework flags this slice serves."""
     parser.add_argument("--model", type=str, default="mlp",
-                        help="mlp|resnet18|resnet50|vit-b16|bert-base|gpt2")
+                        help="mlp|resnet18|resnet50|vit-b16|bert-base|gpt2|"
+                        "llama")
     parser.add_argument("--dataset", type=str, default="synthetic",
                         help="synthetic (mlp) | synthetic-image | "
                         "cifar10-synthetic | cifar10 | digits (resnet18, "
                         "resnet50, vit-b16) | synthetic-tokens | "
-                        "tokens-file (gpt2, bert-base)")
+                        "tokens-file (gpt2, bert-base, llama)")
     parser.add_argument("--augment", type=str, default="none",
                         choices=("none", "cifar", "crop", "imagenet"),
                         help="train-time augmentation: cifar = pad-crop + "
@@ -109,14 +109,17 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--optimizer", type=str, default="adam",
                         choices=("adam", "adamw", "sgd", "lamb", "adafactor"),
                         help="reference default: adam (train.py:249); "
-                        "adafactor is not ported yet, lamb not under "
-                        "--zero1 or --wire")
+                        "adafactor not under --zero1 or --wire")
     parser.add_argument("--schedule", type=str, default="constant",
                         choices=("constant", "cosine", "linear"))
     parser.add_argument("--warmup-steps", type=int, default=0)
     parser.add_argument("--weight-decay", type=float, default=0.0)
     parser.add_argument("--grad-clip", type=float, default=None,
                         help="global-norm gradient clipping threshold")
+    parser.add_argument("--remat", action="store_true",
+                        help="transformer models: recompute each block's "
+                        "activations in the backward pass (trades compute "
+                        "for memory)")
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="accumulate k micro-steps per optimizer step")
     parser.add_argument("--zero1", action="store_true",

@@ -9,7 +9,8 @@
   weights on the same batches, ``train_state_to_flax`` has the keys,
   shapes and dtypes of ``to_state_dict`` of JAX's ``TrainState`` exactly,
   for adam, adamw and sgd, adam with clipping and a cosine schedule with
-  warmup, and adam with ``every_k=2``. Values within the float32
+  warmup, and adam with ``every_k=2`` (adafactor's tree:
+  ``tests/test_torch_item7.py``). Values within the float32
   train-step tolerance of ``tests/test_torch_train_step.py``: parameters
   and moments 1e-5, except parameter entries whose gradient is below 1e-5
   at some step, where Adam's normalised update may follow rounding noise
@@ -226,8 +227,7 @@ def test_train_state_tree_matches_jax_after_three_steps(case):
     batches = _batches()
     want, grads = _jax_state(name, kw, params, batches)
     state = TrainState(step=0, model=model,
-                       optimizer=make_optimizer(model.parameters(), name,
-                                                STATE_LR, **kw))
+                       optimizer=make_optimizer(model, name, STATE_LR, **kw))
     step = build_train_step(ClassificationTask())
     for x, y in batches:
         step(state, {"x": torch.from_numpy(x), "y": torch.from_numpy(y).long()})

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
-from distributed_pytorch_example_tpu_torch.models import GPT2, BertBase
+from distributed_pytorch_example_tpu_torch.models import GPT2, BertBase, Llama
 from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -172,6 +172,49 @@ def test_split_kernel_on_one_row(card, dtype, pos):
     assert check_split_kernel(q, pk, pv, table, lens) == 64
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_split_kernel_at_the_llama_serving_shape(card, dtype):
+    """LLaMA's decode: 12 query heads over 4 kv heads, blocks of 16, 128
+    a row, keys rotated by RoPE at the positions the table gives them, row
+    lengths on and around block edges up to the full table."""
+    q, pk, pv, table, lens = chip_smoke.kernel_case(
+        torch, batch=8, heads=12, kv_heads=4, head_dim=64, block_size=16,
+        max_blocks=128, num_blocks=400, lens=chip_smoke.LLAMA_LENS,
+        dtype=torch.float32, seed=12)
+    pk = chip_smoke.rope_pool(torch, pk, table, lens, 16)
+    q, pk, pv = q.to(dtype), pk.to(dtype), pv.to(dtype)
+    assert check_split_kernel(q, pk, pv, table, lens) >= 1
+
+
+def test_llama_engine_decodes_through_the_kernel(card):
+    """A small LLaMA (GQA 4/2, RoPE) served greedily on the card: the
+    kernel launches once per layer at every decode step, and the tokens
+    equal the same engine's on the CPU."""
+    kw = dict(vocab_size=97, max_len=64, model_dim=128, num_layers=3,
+              num_heads=4, num_kv_heads=2, mlp_dim=256, decode=True,
+              paged_num_blocks=24, paged_block_size=4, paged_max_blocks=8,
+              seed=3)
+    rng = np.random.default_rng(4)
+    reqs = [
+        Request(rid=f"r{i}", prompt=[int(t) for t in rng.integers(0, 97, n)],
+                max_new_tokens=10, seed=i)
+        for i, n in enumerate((9, 4, 12))
+    ]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = InferenceEngine(Llama(**kw, device="cpu"), num_slots=2,
+                          device="cpu").run(reqs)
+    engine = InferenceEngine(Llama(**kw, device="cuda"), num_slots=2,
+                             device="cuda")
+    paged_flash_decode.launches = 0
+    got = engine.run(reqs)
+    assert got["metrics"]["decode_steps"] > 0
+    assert paged_flash_decode.launches == got["metrics"]["decode_steps"] * 3
+    for rid, r in cpu["results"].items():
+        assert got["results"][rid]["status"] == "done"
+        assert got["results"][rid]["tokens"] == r["tokens"], rid
+
+
 def test_kernel_call_never_synchronises(card):
     """The split count comes from shapes: a call reads nothing back from
     the card (PyTorch's sync debug mode raises on any synchronising op)."""
@@ -323,6 +366,28 @@ def test_flash_kernels_at_the_bert_shape(card):
     for row, n in enumerate(lens):
         assert torch.all(grads[1][row, n:] == 0), row
         assert torch.all(grads[2][row, n:] == 0), row
+
+
+@pytest.mark.parametrize("seq", [1024, 2048])
+def test_flash_kernels_at_the_llama_shape(card, seq):
+    """LLaMA's attention: 12 query heads over 4 kv heads (group 3), H 64,
+    bf16, causal, at its training length and its max_len; the backward
+    sums dk and dv over each group. chip_smoke's tolerances."""
+    q, k, v, do, _ = flash_case(batch=2, heads=12, kv_heads=4, seq=seq,
+                                head_dim=64, dtype=torch.bfloat16,
+                                masked=False, seed=seq + 3)
+    kw = dict(causal=True, kv_mask=None, softmax_scale=64 ** -0.5)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+    rgrads = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert grads[1].shape == k.shape and grads[2].shape == v.shape
+    errs = chip_smoke.flash_errors(torch, (o, lse, *grads),
+                                   (ro, rlse, *rgrads))
+    tols = chip_smoke.FLASH_TOL["bfloat16"]
+    for name, err in errs.items():
+        assert err <= tols[name], (seq, name, err, tols[name])
 
 
 def collapsed_case(seed, batch=2, heads=2, seq=512, head_dim=64):

@@ -109,7 +109,7 @@ def test_refused_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPT2(**KW, moe_experts=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPT2(**KW, remat=True, device="cpu")
+        GPT2(**KW, pipe_axis="pipe", device="cpu")
     with pytest.raises(NotImplementedError, match="contiguous"):
         GPT2(**KW, decode=True, device="cpu")
     with pytest.raises(ValueError, match="decode"):

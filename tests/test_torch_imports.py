@@ -104,13 +104,15 @@ def test_engine_refuses_out_of_slice_options():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(SystemExit):
-        serve_main(["--family", "llama", "--device", "cpu"])
+        serve_main(["--spec-tokens", "4", "--device", "cpu"])
 
 
 def test_train_cli_refuses_flags_outside_the_slice():
-    for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"], ["--model", "llama"],
+    for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"],
+                 ["--moe-experts", "2"],
                  ["--checkpoint-format", "sharded"],
-                 ["--optimizer", "adafactor"], ["--optimizer", "lamb", "--zero1"],
+                 ["--optimizer", "adafactor", "--zero1"],
+                 ["--model", "llama", "--dataset", "synthetic"],
                  ["--model", "gpt2", "--dataset", "synthetic"]):
         with pytest.raises(SystemExit):
             train_main(argv + ["--device", "cpu"])

@@ -56,6 +56,7 @@ from distributed_pytorch_example_tpu_torch.data import (
     SyntheticTokenDataset,
 )
 from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
+from distributed_pytorch_example_tpu_torch.parallel import data_parallel
 from distributed_pytorch_example_tpu_torch.train.checkpoint import (
     SHARDED_MAGIC,
 )
@@ -66,6 +67,9 @@ from distributed_pytorch_example_tpu_torch.train import (
     TrainState,
     build_train_step,
     make_optimizer,
+)
+from distributed_pytorch_example_tpu_torch.train.optimizers import (
+    ShardedUpdate,
 )
 from distributed_pytorch_example_tpu_torch.train.state import to_host, to_numpy
 
@@ -394,7 +398,9 @@ def test_refused_options_raise(tmp_path):
         trainer.load(str(pointer))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(ClassificationTask(), sentinels=True)
+    # adafactor's factored statistics span a whole leaf: no ZeRO-1 tiles
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(model.parameters(), "adafactor")
+        ShardedUpdate(model, make_optimizer(model, "adafactor"),
+                      data_parallel(2, dp_shard_opt_state=True), 0, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPT2(**KW, dropout_rate=0.1, device="cpu")
+        GPT2(**KW, pipe_axis="pipe", device="cpu")

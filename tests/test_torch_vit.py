@@ -122,8 +122,10 @@ def test_flax_round_trip_is_bit_exact_and_names_match():
 
 
 def test_refuses_dropout_and_another_image_size():
+    # dropout is ported (tests/test_torch_item7.py); mixture-of-experts
+    # blocks are not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VisionTransformer(**KW, dropout_rate=0.1, image_size=SIZE,
+        VisionTransformer(**KW, moe_experts=2, image_size=SIZE,
                           device="cpu")
     model = VisionTransformer(**KW, image_size=SIZE, device="cpu")
     with pytest.raises(ValueError, match="image_size 16"):

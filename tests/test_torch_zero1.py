@@ -26,6 +26,11 @@ Tolerances:
   mean, with ``amax`` the largest local gradient of either rank.
 - A bf16 parameter gather on top: after one step, exactly the float32
   gather's parameters rounded to bf16.
+- Lamb (trust ratios of whole leaves, the tiles' norms summed across
+  ranks), 2 steps: Adam's bound above, against the replicated Lamb and
+  ``optax.lamb``; with the int8 wire, its first step against Lamb and
+  ``optax.lamb`` applied to the synced gradients put together as whole
+  leaves, to the same bound.
 
 The pair also runs the checkpoint cases of ``tests/test_torch_resume.py``
 (:func:`_checkpoint_cases`): a gathered ZeRO-1 save, and resumes that flip
@@ -44,6 +49,7 @@ import filelock
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -83,7 +89,7 @@ TIMEOUT_S = 120
 KW = dict(vocab_size=97, max_len=16, model_dim=32, num_layers=2,
           num_heads=2, mlp_dim=64)
 SEQ, GLOBAL_BATCH, STEPS = 16, 4, 2
-LR = {"sgd": 0.1, "adam": 1e-3}
+LR = {"sgd": 0.1, "adam": 1e-3, "lamb": 1e-2}
 MIN_SHARD = 256  # the ZeRO-1 floor at this width
 INT8 = dict(compress="int8-block", block_size=64, min_size=1)
 STEP_BOUND = 1.02 / 127.0
@@ -102,6 +108,9 @@ CASES = {
     # optax.MultiSteps (the CLI's --grad-accum): the update every 2nd step,
     # with the accumulated mean clipped by its global norm across ranks
     "sgd-every2-clip": ("sgd", 1, dict(bucket_bytes=2048)),
+    # lamb: whole-leaf trust ratios from the tiles' norms (one all-reduce)
+    "lamb-inline": ("lamb", 1, {}),
+    "lamb-int8": ("lamb", 1, dict(bucket_bytes=2048, **INT8)),
 }
 # optimizer options beyond the name and learning rate, by case
 OPT_KW = {"sgd-every2-clip": dict(every_k=2, grad_clip_norm=0.05)}
@@ -395,7 +404,7 @@ def _assert_params_close(got, want, atol, what, grads=None, lr=0.0):
 
 @pytest.mark.parametrize("name", ["sgd-inline", "sgd-bucketed",
                                   "adam-inline", "adam-bucketed",
-                                  "sgd-every2-clip"])
+                                  "sgd-every2-clip", "lamb-inline"])
 @pytest.mark.parametrize("reference", ["port", "jax"])
 def test_zero1_step_matches_the_replicated_step(zero1_results, name,
                                                 reference):
@@ -403,7 +412,7 @@ def test_zero1_step_matches_the_replicated_step(zero1_results, name,
     ref_params, ref_grads = _replicated(opt, **OPT_KW.get(name, {}))
     if reference == "jax":
         ref_params = _jax_replicated(opt, **OPT_KW.get(name, {}))
-    small = ref_grads if opt == "adam" else None
+    small = ref_grads if opt in ("adam", "lamb") else None
     for rank in range(WORLD):
         got = zero1_results[rank][name]
         for i in range(STEPS):
@@ -553,3 +562,48 @@ def test_every_k_holds_the_update_until_the_kth_step(zero1_results):
         moved = sum(float(np.square(got[1][k] - v, dtype=np.float64).sum())
                     for k, v in start.items()) ** 0.5
         assert abs(moved - LR["sgd"] * clip) <= 1e-4 * LR["sgd"] * clip
+
+
+@pytest.mark.parametrize("reference", ["port", "jax"])
+def test_zero1_lamb_on_int8_gradients_is_lamb_on_whole_leaves(
+        zero1_results, reference):
+    """The int8 wire changes the gradients, not the update: the first
+    ZeRO-1 lamb step on the synced (dequantized) gradients, every rank's
+    tiles put together, equals the replicated Lamb (or ``optax.lamb``)
+    step on those gradients as whole leaves, to the Adam-step bound."""
+    dims = zero1_results[0]["lamb-int8"]["dims"]
+    model = GPT2(**KW, logits_mode="hidden", device="cpu", seed=0)
+    leaves = interop.flax_leaves(model)
+    named = dict(model.named_parameters())
+    full = {}
+    for leaf, dim in zip(leaves, dims):
+        tiles = [zero1_results[r]["lamb-int8"]["synced"][leaf.key]
+                 for r in range(WORLD)]
+        if dim is None:
+            full[leaf.key] = tiles[0]
+            continue
+        rows = torch.from_numpy(np.stack([t.reshape(-1) for t in tiles]))
+        full[leaf.key] = _unscatter(rows, dim, tiles[0].shape).numpy()
+    grads = {leaf.name: leaf.from_jax(torch.from_numpy(full[leaf.key]))
+             .contiguous() for leaf in leaves}
+    if reference == "port":
+        optimizer = make_optimizer(model, "lamb", LR["lamb"])
+        for name, p in named.items():
+            p.grad = grads[name]
+        optimizer.step()
+        want = _params(model)
+    else:
+        tx = jax_opt.make_optimizer("lamb", LR["lamb"])
+        jp = jax.tree_util.tree_map(jnp.asarray,
+                                    _np(interop.params_to_flax(model)))
+        jg = jax.tree_util.tree_map(jnp.asarray, _np(
+            interop.params_to_flax(model, grads)))
+        updates, _ = jax.jit(tx.update)(jg, tx.init(jp), jp)
+        interop.params_from_flax(model, jax.tree_util.tree_map(
+            np.asarray, optax.apply_updates(jp, updates)))
+        want = _params(model)
+    small = [{name: g.numpy() for name, g in grads.items()}]
+    for rank in range(WORLD):
+        _assert_params_close(zero1_results[rank]["lamb-int8"]["params"][0],
+                             want, 1e-6, f"lamb-int8 rank {rank} vs "
+                             f"{reference}", grads=small, lr=LR["lamb"])
