@@ -122,10 +122,30 @@ last line:
    K2 once per layer per decode step, greedy tokens and paged logits
    against the plain forward. The ``llama`` fields of the K1 and K2
    entries carry these shapes' numbers.
+13. launch — GPT-2 124M through the training CLI at world 2, two ranks on
+   the card started by the port's ``launch/entrypoint.sh`` (``REPLICAS=2``,
+   explicit ``PROCESS_ID`` and ``COORDINATOR_ADDRESS``, a dummy
+   ``NF_DISCOVERY_SERVICE``; gloo, ZeRO-1 with K3b gradient buckets and
+   K3a bf16 parameter gathers, K1), 8 rows a rank, one epoch of 8 steps,
+   ``latest`` every 2 steps in ``auto``'s format (sharded at world 2):
+   first uninterrupted, then (a) with ``MAX_RESTARTS=1`` and a chaos plan
+   in ``DPX_CHAOS`` that SIGKILLs both ranks after step 7: both launchers
+   restart their rank, which resumes from the pointer's version, and every
+   step's loss must be within 1e-5 of the uninterrupted run's; prints the
+   versions on disk and each rank's shard file bytes. (b) The
+   uninterrupted run's final state, saved sharded and gathered at world 2,
+   loaded in one process (the world a shrink leaves): bit-equal to each
+   other and to the world-2 parameters, then its next epoch through
+   ``Trainer.fit`` (K1 12 x 8 forward and backward). (c) The calling
+   thread's hold of 3 sharded and 3 gathered saves of that state at world
+   2, per rank, beside the card's name and power limit. The ``launch``
+   fields of the K1 and K3 entries carry rank 0's launches after the
+   restart.
 
-Each main path (serve, train, zero1, checkpoint, bert, vision, and
-llama's train and serve) runs with every launch count set to 0 just
-before it and read just after.
+Each main path (serve, train, zero1, checkpoint, bert, vision, llama's
+train and serve, and launch's world-1 epoch) runs with every launch count
+set to 0 just before it and read just after; launch's ranks count in
+their own processes, from 0.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1431,7 +1451,8 @@ def path_worker(run: str, ref_path: str, ckpt_dir: str = "") -> int:
     trainer = Trainer(model, CausalLMTask(),
                       make_optimizer(model.parameters(), "adam", 1e-3),
                       partitioner=part, log_every=ZERO1_STEPS,
-                      checkpoint_dir=ckpt_dir or None)
+                      checkpoint_dir=ckpt_dir or None,
+                      checkpoint_format="gathered")
     train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
                                      seq_len=TRAIN_SEQ, seed=0)
     loader = Take(DeviceLoader(train_ds, TRAIN_BATCH, device="cuda", seed=0),
@@ -3130,6 +3151,342 @@ def llama(torch, smi_line, bandwidth):
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# 13. launch: two ranks through the port's launcher, killed and restarted
+# ---------------------------------------------------------------------------
+
+LAUNCH_WORLD = 2
+ENTRYPOINT = os.path.join(ROOT, "distributed_pytorch_example_tpu_torch",
+                          "launch", "entrypoint.sh")
+# GPT-2 124M through the training CLI at world 2, 8 rows a rank: one epoch
+# of 8 steps and a validation batch, `latest` every 2 steps in auto's
+# format (sharded at world 2), 2 versions kept
+LAUNCH_SAMPLES, LAUNCH_EVERY = 128, 2
+# SIGKILL on both ranks after their 7th step: `latest` then holds step 2,
+# 4 or 6 (the save after step 6 may still be in flight), so the restarted
+# run takes at most 6 steps and never reaches a 7th boundary
+LAUNCH_KILL = '{"faults":[{"kind":"kill","at":"step","nth":7}]}'
+# timed saves of each format of the final state, phase 13 (c)
+LAUNCH_SAVES = 3
+
+
+def launch_args(ckdir):
+    return ["--model", "gpt2", "--dataset", "synthetic-tokens", "--seq-len",
+            str(TRAIN_SEQ), "--dtype", "bfloat16", "--batch-size",
+            str(TRAIN_BATCH // LAUNCH_WORLD), "--epochs", "1",
+            "--num-samples", str(LAUNCH_SAMPLES), "--zero1",
+            "--overlap-buckets", "-1", "--wire-param-gather", "bf16",
+            "--checkpoint-dir", ckdir, "--checkpoint-format", "auto",
+            "--save-every-steps", str(LAUNCH_EVERY), "--checkpoint-retain",
+            "2", "--log-every", "1"]
+
+
+def launch_counts():
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_reduce_scatter,
+    )
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    return {"k1_fwd": flash_attention_fwd.launches,
+            "k1_bwd": flash_attention_bwd.launches,
+            "k3a": ring_all_gather.launches,
+            "k3b": ring_reduce_scatter.launches}
+
+
+def launch_worker(record: str, argv) -> int:
+    """One rank of phase 13, run by the launcher as its TRAINING_SCRIPT:
+    the port's training CLI with ``argv``. Every step appends its loss and
+    the kernels' launch counts to ``<record>.<rank>`` (a killed run keeps
+    what it wrote); the end of the fit appends the saves' records, the
+    parameters' digest and, with ``CHIP_SMOKE_SAVE_TIMES`` set to a
+    directory, :func:`timed_saves` of the final state."""
+    from distributed_pytorch_example_tpu_torch.runtime import distributed
+    from distributed_pytorch_example_tpu_torch.train import cli, loop
+
+    fit = loop.Trainer.fit
+
+    def recorded_fit(self, *args, **kw):
+        step_fn = self.train_step
+        path = f"{record}.{distributed.process_index()}"
+
+        def step(state, batch):
+            metrics = step_fn(state, batch)
+            line = {"step": state.step, "loss": float(metrics["loss"]),
+                    **launch_counts()}
+            with open(path, "a") as f:
+                f.write(json.dumps(line) + "\n")
+            return metrics
+
+        self.train_step = step
+        history = fit(self, *args, **kw)
+        end = {"saves": [{k: r[k] for k in ("hold_s", "copy_s", "wait_s",
+                                            "write_s", "bytes")}
+                         for r in self._saver.records],
+               "params_sha256": params_digest(self.model),
+               "counts": launch_counts()}
+        if os.environ.get("CHIP_SMOKE_SAVE_TIMES"):
+            end["timed"] = timed_saves(self,
+                                       os.environ["CHIP_SMOKE_SAVE_TIMES"])
+        with open(path, "a") as f:
+            f.write(json.dumps(end) + "\n")
+        return history
+
+    loop.Trainer.fit = recorded_fit
+    return cli.main(argv)
+
+
+def timed_saves(trainer, root):
+    """The trainer's state saved LAUNCH_SAVES times in each format, as
+    epochs 1, 2, ... (each save a new version, as in training, so a
+    sharded save never clears a dir of its own name), each save starting
+    with the card idle and every rank at a barrier and no write of the
+    saver in flight: the calling thread's hold, the write on the saver's
+    thread (sharded; the gathered format at world 2 writes on the calling
+    thread, rank 0 only) and the bytes this rank wrote."""
+    import torch
+
+    from distributed_pytorch_example_tpu_torch.runtime import distributed
+    from distributed_pytorch_example_tpu_torch.train import checkpoint as ck
+
+    saver, out = ck.AsyncSaver(), {}
+    for fmt in ("sharded", "gathered"):
+        records = []
+        for epoch in range(1, LAUNCH_SAVES + 1):
+            saver.wait()
+            torch.cuda.synchronize()
+            distributed.barrier()
+            records.append(ck.save_checkpoint(
+                os.path.join(root, f"{fmt}.ckpt"), trainer.state, epoch, 0.0,
+                {},
+                saver=saver, sharded=fmt == "sharded", retain=1,
+                layout=trainer.layout()))
+        saver.wait()
+        out[fmt] = [{k: r[k] for k in ("hold_s", "copy_s", "write_s",
+                                       "bytes")} for r in records]
+    distributed.barrier()
+    return out
+
+
+def launch_pair(tmp, name, args, **env_extra):
+    """Both ranks through the port's entrypoint.sh (REPLICAS=2, explicit
+    PROCESS_ID and COORDINATOR_ADDRESS, a dummy discovery service), each
+    in its own process group so that a stuck run is killed whole; returns
+    (each launcher's output, each rank's record lines)."""
+    port = free_port()
+    record = os.path.join(tmp, f"{name}.jsonl")
+    # the launcher runs `python`: this interpreter, whatever its name (a
+    # wrapper, not a link, so that a virtual environment stays in force)
+    bindir = os.path.join(tmp, "bin")
+    if not os.path.exists(bindir):
+        os.makedirs(bindir)
+        wrapper = os.path.join(bindir, "python")
+        with open(wrapper, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(wrapper, 0o755)
+    procs = []
+    for rank in range(LAUNCH_WORLD):
+        env = {**os.environ, "REPLICAS": str(LAUNCH_WORLD),
+               "PROCESS_ID": str(rank),
+               "COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "NF_DISCOVERY_SERVICE": "chip-smoke.invalid",
+               "PATH": os.pathsep.join([bindir, os.environ["PATH"]]),
+               "TRAINING_SCRIPT": os.path.abspath(__file__),
+               "SCRIPT_ARGS": " ".join(["--launch-worker", record, *args]),
+               **env_extra}
+        procs.append(subprocess.Popen(
+            ["bash", ENTRYPOINT], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0,
+              f"launch {name}: rank {rank}'s launcher exit "
+              f"{proc.returncode}: {out[-4000:]}")
+    lines = {}
+    for rank in range(LAUNCH_WORLD):
+        with open(f"{record}.{rank}") as f:
+            lines[rank] = [json.loads(line) for line in f]
+    return outs, lines
+
+
+def launch_steps(lines):
+    """(losses by step, the end record(s)) of one rank's record lines."""
+    steps = [r for r in lines if "step" in r]
+    return steps, [r for r in lines if "saves" in r]
+
+
+def launch(torch, smi_line):
+    """Phase 13 (a)-(c) in a temporary directory; returns rank 0's K1 and
+    K3 launch counts of the restarted run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    t0 = time.perf_counter()
+    try:
+        counts = launch_runs(torch, smi_line, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("launch", f"phase 13 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def launch_runs(torch, smi_line, tmp):
+    from distributed_pytorch_example_tpu_torch.train import checkpoint as ck
+
+    # the uninterrupted run, then the timed saves of its final state
+    t0 = time.perf_counter()
+    ref_dir, timed_dir = os.path.join(tmp, "ref"), os.path.join(tmp, "timed")
+    os.makedirs(timed_dir)
+    _, ref = launch_pair(tmp, "ref", launch_args(ref_dir),
+                         CHIP_SMOKE_SAVE_TIMES=timed_dir)
+    ref_losses = {}
+    for rank in range(LAUNCH_WORLD):
+        steps, ends = launch_steps(ref[rank])
+        check([s["step"] for s in steps] == list(range(1, 9)) and ends,
+              f"launch: uninterrupted rank {rank} logged steps "
+              f"{[s['step'] for s in steps]}")
+        ref_losses[rank] = {s["step"]: s["loss"] for s in steps}
+    losses = [round(ref_losses[0][s], 4) for s in sorted(ref_losses[0])]
+    say("launch", f"uninterrupted: 2 ranks through entrypoint.sh in "
+                  f"{time.perf_counter() - t0:.1f} s, losses {losses}")
+
+    # (a) the same run killed after step 7 on both ranks, restarted once
+    t0 = time.perf_counter()
+    run_dir = os.path.join(tmp, "run")
+    outs, got = launch_pair(tmp, "killed", launch_args(run_dir),
+                            MAX_RESTARTS="1", DPX_CHAOS=LAUNCH_KILL)
+    counts = {}
+    for rank in range(LAUNCH_WORLD):
+        check("restart 1/1, resuming from" in outs[rank]
+              and "SIGKILL at crash point 'step'" in outs[rank],
+              f"launch (a): rank {rank} was not killed and restarted: "
+              f"{outs[rank][-4000:]}")
+        steps, ends = launch_steps(got[rank])
+        numbers = [s["step"] for s in steps]
+        resumed = numbers[7] - 1 if len(numbers) > 7 else None
+        check(numbers[:7] == list(range(1, 8)) and resumed in (2, 4, 6)
+              and numbers[7:] == list(range(resumed + 1, 9)) and ends,
+              f"launch (a): rank {rank} logged steps {numbers}")
+        check(f"Resuming epoch 0 at batch {resumed}/8" in outs[rank],
+              f"launch (a): rank {rank} did not log its resume at batch "
+              f"{resumed}")
+        worst = max(abs(s["loss"] - ref_losses[rank][s["step"]])
+                    for s in steps)
+        check(worst <= RESUME_TOL,
+              f"launch (a): rank {rank}'s losses differ from the "
+              f"uninterrupted run's by {worst:.3e} > {RESUME_TOL}")
+        same = (ends[-1]["params_sha256"]
+                == launch_steps(ref[rank])[1][-1]["params_sha256"])
+        counts[rank] = ends[-1]["counts"]
+        check(all(v > 0 for v in counts[rank].values()),
+              f"launch (a): rank {rank} launch counts {counts[rank]}")
+        say("launch", f"(a) rank {rank}: killed after step 7, restarted, "
+                      f"resumed at step {resumed}; {len(steps) - 7} steps "
+                      f"after the restart, losses within {worst:.3e} of the "
+                      f"uninterrupted run's (tol {RESUME_TOL}), final "
+                      f"parameters {'' if same else 'not '}bit-equal to "
+                      f"its; launches after the restart {counts[rank]}")
+    latest = os.path.join(run_dir, ck.LATEST_NAME)
+    versions = sorted(os.listdir(f"{latest}.shards"))
+    pointed = ck._pointed_version_dir(latest)
+    sizes = [os.path.getsize(os.path.join(pointed, f"shard_{r:05d}.msgpack"))
+             for r in range(LAUNCH_WORLD)]
+    say("launch", f"(a) in {time.perf_counter() - t0:.1f} s; versions on "
+                  f"disk {versions}, `latest` -> {os.path.basename(pointed)}"
+                  f"; shard file bytes by rank {sizes}, manifest "
+                  f"{os.path.getsize(os.path.join(pointed, 'manifest.msgpack'))}")
+
+    launch_world1(torch, timed_dir, ref)
+    launch_save_times(ref, smi_line)
+    return counts[0]
+
+
+def launch_world1(torch, timed_dir, ref):
+    """(b) The world-2 sharded checkpoint loaded in one process, the
+    world a shrink leaves, against the gathered checkpoint of the same
+    state, then the next epoch through Trainer.fit."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        DeviceLoader,
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    sharded = os.path.join(timed_dir, "sharded.ckpt")
+    gathered = os.path.join(timed_dir, "gathered.ckpt")
+    a, losses = ckpt_run(torch, 1)
+    b, _ = ckpt_run(torch, 2)
+    t0 = time.perf_counter()
+    epoch, _ = a.load(sharded)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    b.load(gathered)
+    bad = same_state(torch, a.state, b.state)
+    check(not bad and epoch == LAUNCH_SAVES and a.state.step == 8,
+          f"launch (b): the sharded load differs from the gathered one: "
+          f"{bad[:5]} (step {a.state.step}, epoch {epoch})")
+    digest = params_digest(a.model)
+    check(digest == launch_steps(ref[0])[1][-1]["params_sha256"],
+          "launch (b): the loaded parameters differ from the world-2 run's")
+    del b
+    torch.cuda.empty_cache()
+    train_ds = SyntheticTokenDataset(LAUNCH_SAMPLES, seq_len=TRAIN_SEQ,
+                                     seed=0)
+    loader = DeviceLoader(train_ds, TRAIN_BATCH, device="cuda", seed=0)
+    reset_counts()
+    a.fit(loader, None, epochs=epoch + 1, resume=sharded)
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    steps = LAUNCH_SAMPLES // TRAIN_BATCH
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and a.state.step == 2 * steps
+          and flash_attention_fwd.launches == LAYERS * steps
+          and flash_attention_bwd.launches == LAYERS * steps,
+          f"launch (b): resumed at world 1: losses {losses}, step "
+          f"{a.state.step}, K1 {flash_attention_fwd.launches} / "
+          f"{flash_attention_bwd.launches}")
+    say("launch", f"(b) world-2 sharded checkpoint (step 8) loaded in one "
+                  f"process in {load_s:.2f} s: bit-equal to the gathered "
+                  f"checkpoint of the same state and to the world-2 "
+                  f"parameters (sha256 {digest[:16]}); one more epoch at "
+                  f"world 1 through Trainer.fit: losses "
+                  f"{[round(x, 4) for x in losses]}, K1 "
+                  f"{flash_attention_fwd.launches} / "
+                  f"{flash_attention_bwd.launches}")
+    del a
+    torch.cuda.empty_cache()
+
+
+def launch_save_times(ref, smi_line):
+    """(c) The calling thread's hold of a sharded save against a gathered
+    save of the same state at world 2, per rank."""
+    for rank in range(LAUNCH_WORLD):
+        timed = launch_steps(ref[rank])[1][-1]["timed"]
+        parts = []
+        for fmt in ("sharded", "gathered"):
+            holds = sorted(r["hold_s"] * 1e3 for r in timed[fmt])
+            writes = sorted((r["write_s"] or 0.0) * 1e3 for r in timed[fmt])
+            parts.append(
+                f"{fmt} hold median {holds[len(holds) // 2]:.1f} ms "
+                f"(min {holds[0]:.1f}, max {holds[-1]:.1f}; "
+                f"{[round(h, 1) for h in holds]}), write median "
+                f"{writes[len(writes) // 2]:.1f} ms, "
+                f"{timed[fmt][-1]['bytes']} bytes")
+        say("launch", f"(c) rank {rank}, {LAUNCH_SAVES} saves each of the "
+                      f"final state ({smi_line}): " + "; ".join(parts))
+
+
 def free_port():
     import socket
 
@@ -3151,6 +3508,7 @@ def main() -> int:
               "the repository root", file=sys.stderr)
         return 2
     phase = "probe"
+    t_start = time.perf_counter()
     try:
         smi_line, bandwidth = probe(torch)
         phase = "build"
@@ -3179,10 +3537,18 @@ def main() -> int:
         phase = "llama"
         k1_llama, k2["llama"] = llama(torch, smi_line, bandwidth)
         k1_fwd["llama"], k1_bwd["llama"] = k1_llama["fwd"], k1_llama["bwd"]
+        phase = "launch"
+        counts = launch(torch, smi_line)
+        for entry, key in ((k1_fwd, "k1_fwd"), (k1_bwd, "k1_bwd"),
+                           (k3a, "k3a"), (k3b, "k3b")):
+            entry["launch"] = {"launches": counts[key],
+                               "run": "phase 13 (a), rank 0 after the "
+                                      "restart"}
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
         return 1
+    say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k2, k1_fwd, k1_bwd, k3a, k3b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3196,4 +3562,6 @@ if __name__ == "__main__":
         sys.exit(path_worker(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--llama-lamb-worker"]:
         sys.exit(llama_lamb_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--launch-worker"]:
+        sys.exit(launch_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -1,7 +1,8 @@
-"""The mesh stamp of a checkpoint (the part of the JAX package's
-robustness/elastic.py that the gathered format calls).
+"""Mesh-shape-agnostic resume (the JAX package's robustness/elastic.py):
+the mesh stamp of a checkpoint, the gate on it, and how far behind the
+newest save a restore landed.
 
-Every save carries a format-3 ``mesh_manifest``: the mesh axes and their
+Every save (both formats) carries a format-3 ``mesh_manifest``: the mesh axes and their
 sizes, the per-leaf partition specs and the ZeRO-1 scatter dims. The
 port's one axis is ``data`` (one rank per process); its ZeRO-1 overlay
 shards an ``opt_state`` leaf on the dim ``Partitioner.zero1_dim`` picks,
@@ -14,15 +15,17 @@ JAX package's ``data=N, fsdp=1, ...`` is the port's ``data=N``.
 :func:`validate_resume` gates a restore on the stamp: an unstamped
 checkpoint under ``DPX_ELASTIC=1`` raises
 :class:`MissingMeshManifestError`; a stamped one saved under another mesh
-is logged and restored (the gathered format holds full leaves, so a
-checkpoint written replicated restores under ZeRO-1 and the other way
-round). Shrink-to-survivors and ``resume_gap_steps`` are not ported yet
-(ROADMAP.md queue 1, item 9).
+is logged and restored (both formats reassemble full leaves on load, so a
+checkpoint written at one world or mode restores at any other).
+:func:`resume_gap_steps` counts the steps between the restored cursor and
+the newest save attempt. The shrink to survivors itself lives in
+``runtime/distributed.py``.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, List, Mapping, Optional, Union
 
 from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
@@ -36,6 +39,11 @@ MANIFEST_KEY = "mesh_manifest"
 ELASTIC_ENV = "DPX_ELASTIC"
 
 SpecEntry = Union[None, str, List[str]]
+
+# a sharded version dir (``{epoch:08d}`` or ``{epoch:08d}.{batch:08d}``)
+# and a gathered history entry
+VERSION_RE = re.compile(r"\d{8}(\.\d{8})?")
+HISTORY_RE = re.compile(r"\d{8}\.ckpt")
 
 
 class MissingMeshManifestError(RuntimeError):
@@ -60,12 +68,13 @@ def canonical_axes(axes: Optional[Mapping]) -> Optional[Dict[str, int]]:
     return {str(k): int(v) for k, v in axes.items() if int(v) != 1}
 
 
-def _leaves(tree, prefix: str = ""):
-    """(path, leaf) in the tree's map order (the order the JAX package's
-    flatten of the same TrainState visits)."""
+def tree_leaves(tree, prefix: str = ""):
+    """(path, leaf) of a state tree in its map order; the path is the JAX
+    package's ``_path_str`` of the same ``TrainState`` leaf (``/``-joined
+    keys, ``opt_state/0/mu/Dense_0/kernel``). An empty map has none."""
     if isinstance(tree, dict):
         for key, value in tree.items():
-            yield from _leaves(value, f"{prefix}/{key}" if prefix else key)
+            yield from tree_leaves(value, f"{prefix}/{key}" if prefix else key)
     else:
         yield prefix, tree
 
@@ -81,7 +90,7 @@ def mesh_manifest(state_tree: Mapping, partitioner=None,
         world = partitioner.world
     specs: Dict[str, List[SpecEntry]] = {}
     zero1_dims: Dict[str, int] = {}
-    for path, leaf in _leaves(state_tree):
+    for path, leaf in tree_leaves(state_tree):
         shape = tuple(getattr(leaf, "shape", ()))
         dim = None
         if partitioner is not None and path.startswith("opt_state/"):
@@ -136,3 +145,49 @@ def validate_resume(
             "elastic mode" if elastic else "reshard-on-load",
         )
     return stamp
+
+
+def _parse_version(name: str):
+    if "." in name:
+        epoch, batch = name.split(".", 1)
+        return int(epoch), int(batch)
+    return int(name), 0
+
+
+def resume_gap_steps(path: str, restored_epoch: int,
+                     restored_extra: Optional[dict] = None) -> Optional[int]:
+    """Steps between the restored cursor and the newest save attempt.
+
+    0: the newest checkpoint restored (no work lost); a positive number:
+    the steps between the restored mid-epoch cursor and the newest
+    (possibly torn) save of the same epoch; None: the gap spans an epoch
+    boundary (steps per epoch are unknown offline), or the format cannot
+    tell.
+    """
+    restored = (int(restored_epoch),
+                int((restored_extra or {}).get("batch_in_epoch") or 0))
+    shards = f"{path}.shards"
+    if os.path.isdir(shards):
+        names = sorted(n for n in os.listdir(shards)
+                       if VERSION_RE.fullmatch(n))
+        if not names:
+            return None
+        newest = _parse_version(names[-1])
+        if newest == restored:
+            return 0
+        if newest[0] == restored[0]:
+            return max(newest[1] - restored[1], 0)
+        return None
+    history = f"{path}.history"
+    if os.path.isdir(history):
+        names = sorted(n for n in os.listdir(history)
+                       if HISTORY_RE.fullmatch(n))
+        if names:
+            try:
+                if os.path.samefile(os.path.join(history, names[-1]), path):
+                    return 0
+            except OSError:
+                pass
+        return None
+    # a single file: nothing newer can exist
+    return 0

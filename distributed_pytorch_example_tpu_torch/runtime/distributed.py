@@ -18,8 +18,18 @@ listening yet is a transient failure). The backend is nccl only when every
 process on a host has a card of its own; processes that share a card, and
 the CPU, use gloo (NCCL refuses two ranks on one device). Ranks on one
 host are ``$LOCAL_WORLD_SIZE`` when set, else every process when the
-coordinator is a loopback address, else one. The JAX package's elastic
-shrink-to-survivors path is not ported yet (ROADMAP.md queue 1, item 9).
+coordinator is a loopback address, else one.
+
+Shrink to survivors (``DPX_ELASTIC=1``): when every join attempt fails
+because peers are gone for good, each surviving process probes every
+peer's address (:func:`peer_address`, the launcher's host naming), so
+all survivors derive the same smaller world (:func:`shrink_to_survivors`:
+ranks renumbered densely in their old order, the lowest survivor the new
+coordinator) and join it. :func:`initialize` returns the world it
+joined; the caller resumes from the last intact checkpoint, which both
+formats reshard onto the new world. Without the variable, or when every
+peer answers the probe (then the failure is not a lost peer), the join's
+error propagates.
 
 The library collectives the port needs (:func:`all_reduce_sum_`,
 :func:`all_gather_tiled`, :func:`reduce_scatter_tiled`,
@@ -48,7 +58,7 @@ from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
 
 logger = get_logger(__name__)
 
-# how long a collective (and the rendezvous) may wait on a slow peer
+# how long a join, or a collective, may wait on a slow peer
 _PROCESS_GROUP_TIMEOUT = timedelta(minutes=10)
 
 
@@ -135,34 +145,73 @@ def choose_backend(device: torch.device, config: DistributedConfig,
     return "nccl" if local <= torch.cuda.device_count() else "gloo"
 
 
-def initialize(
-    config: Optional[DistributedConfig] = None,
-    device: Union[str, torch.device] = "cuda",
-    max_attempts: Optional[int] = None,
-) -> DistributedConfig:
-    """Join the process group (the reference's ``setup_distributed``).
+def peer_address(config: DistributedConfig, process_id: int) -> str:
+    """Process ``process_id``'s address derived from the coordinator's:
+    the launcher names hosts ``{base}-{k}`` behind one discovery service,
+    so ``myjob-0.svc:29500`` -> ``myjob-3.svc:29500``."""
+    if not config.coordinator_address:
+        raise ValueError("peer_address needs a distributed config")
+    host, _, port = config.coordinator_address.rpartition(":")
+    name, _, domain = host.partition(".")
+    base = name.rsplit("-", 1)[0] if "-" in name else name
+    peer = f"{base}-{process_id}"
+    if domain:
+        peer = f"{peer}.{domain}"
+    return f"{peer}:{port}"
 
-    A no-op for one process, and idempotent. ``device`` and the host's
-    cards pick the backend (:func:`choose_backend`); a CUDA process binds
-    to card ``rank % device_count`` before joining. ``max_attempts`` defaults to
-    ``$DPX_RENDEZVOUS_RETRIES`` + 1 = 4, with ``$DPX_RENDEZVOUS_BACKOFF``
-    (default 1.0 s) as the first backoff.
-    """
+
+def _default_probe(address: str, timeout: float = 2.0) -> bool:
+    """Whether the host at ``address`` (host:port) is there: a TCP
+    handshake, where a refused connection counts as alive (only the
+    coordinator listens on the port, but the host answered). A failed
+    name lookup (a host moved away loses its record), a timeout or an
+    unreachable network count as dead."""
+    host, _, port = address.rpartition(":")
+    try:
+        socket.create_connection((host, int(port)), timeout=timeout).close()
+        return True
+    except ConnectionRefusedError:
+        return True
+    except OSError:
+        return False
+
+
+def compute_survivor_config(config: DistributedConfig,
+                            responsive: list) -> DistributedConfig:
+    """The smaller world of the ``responsive`` process ids (this one
+    included): ranks renumbered densely in their old order, the lowest
+    survivor the coordinator."""
+    survivors = sorted(set(responsive) | {config.process_id})
+    return DistributedConfig(
+        num_processes=len(survivors),
+        process_id=survivors.index(config.process_id),
+        coordinator_address=peer_address(config, survivors[0]),
+    )
+
+
+def shrink_to_survivors(config: DistributedConfig,
+                        probe=None) -> DistributedConfig:
+    """Probe every peer and return the world of those that answer. Every
+    survivor probes the same list, so all derive the same world without
+    talking to each other."""
+    probe = probe if probe is not None else _default_probe
+    responsive = [config.process_id]
+    for k in range(config.num_processes):
+        if k == config.process_id:
+            continue
+        address = peer_address(config, k)
+        alive = probe(address)
+        logger.info("Elastic probe: process %d (%s) %s", k, address,
+                    "alive" if alive else "unresponsive")
+        if alive:
+            responsive.append(k)
+    return compute_survivor_config(config, responsive)
+
+
+def _attempt_join(config: DistributedConfig, max_attempts: int,
+                  backend: str) -> None:
+    """One bounded-retry join of a fixed world."""
     from distributed_pytorch_example_tpu_torch.robustness import chaos, retry
-
-    if config is None:
-        config = resolve_config()
-    if not config.is_distributed:
-        logger.info("Single-process mode (no rendezvous needed)")
-        return config
-    if dist.is_initialized():
-        return config
-    if max_attempts is None:
-        max_attempts = int(os.environ.get("DPX_RENDEZVOUS_RETRIES", "3")) + 1
-    dev = torch.device(device)
-    backend = choose_backend(dev, config)
-    if dev.type == "cuda":
-        torch.cuda.set_device(config.process_id % torch.cuda.device_count())
 
     def join():
         chaos.transient_failure("rendezvous")  # no-op without a plan
@@ -187,6 +236,67 @@ def initialize(
         "coordinator=%s, backend=%s", config.process_id,
         config.num_processes, config.coordinator_address, backend,
     )
+
+
+def initialize(
+    config: Optional[DistributedConfig] = None,
+    device: Union[str, torch.device] = "cuda",
+    max_attempts: Optional[int] = None,
+    probe=None,
+) -> DistributedConfig:
+    """Join the process group (the reference's ``setup_distributed``);
+    returns the world actually joined, which under ``DPX_ELASTIC=1`` may
+    be smaller than ``config``'s: callers use it, and
+    :func:`process_count` follows it.
+
+    A no-op for one process, and idempotent. ``device`` and the host's
+    cards pick the backend (:func:`choose_backend`); a CUDA process binds
+    to card ``rank % device_count`` before joining. ``max_attempts``
+    defaults to ``$DPX_RENDEZVOUS_RETRIES`` + 1 = 4, with
+    ``$DPX_RENDEZVOUS_BACKOFF`` (default 1.0 s) as the first backoff.
+    ``probe`` (an address -> alive callable) replaces the TCP probe of
+    the shrink path.
+    """
+    from distributed_pytorch_example_tpu_torch.robustness import elastic
+
+    if config is None:
+        config = resolve_config()
+    if not config.is_distributed:
+        logger.info("Single-process mode (no rendezvous needed)")
+        return config
+    if dist.is_initialized():
+        return config
+    if max_attempts is None:
+        max_attempts = int(os.environ.get("DPX_RENDEZVOUS_RETRIES", "3")) + 1
+    dev = torch.device(device)
+    backend = choose_backend(dev, config)
+    if dev.type == "cuda":
+        torch.cuda.set_device(config.process_id % torch.cuda.device_count())
+    try:
+        _attempt_join(config, max_attempts, backend)
+    except Exception as err:
+        if not elastic.elastic_enabled():
+            raise
+        shrunk = shrink_to_survivors(config, probe=probe)
+        if shrunk.num_processes >= config.num_processes:
+            # every peer answered: not a lost peer (a bad port, a wrong
+            # address); the same world at another size would fail alike
+            raise
+        logger.warning(
+            "Rendezvous exhausted at world size %d (%s); %s=1: shrinking "
+            "to %d survivor(s), new process_id=%d, coordinator=%s",
+            config.num_processes, err, elastic.ELASTIC_ENV,
+            shrunk.num_processes, shrunk.process_id,
+            shrunk.coordinator_address)
+        config = shrunk
+        if not config.is_distributed:
+            logger.info("Single-process mode (the only survivor)")
+            return config
+        backend = choose_backend(dev, config)
+        if dev.type == "cuda":
+            torch.cuda.set_device(
+                config.process_id % torch.cuda.device_count())
+        _attempt_join(config, max_attempts, backend)
     return config
 
 

@@ -35,8 +35,11 @@ optimizer every k-th step to the mean of k steps' gradients (the JAX CLI's
 the backward pass (the other models ignore it, as in JAX).
 Checkpoints go to ``--checkpoint-dir`` (default ``./checkpoints``): best
 and latest at each epoch's end, ``latest`` every ``--save-every-steps``
-batches too, and ``metrics.jsonl``. ``--resume`` takes a checkpoint of
-either package. SIGTERM (SIGINT) finishes the step in flight, saves
+batches too, and ``metrics.jsonl``; ``--checkpoint-format`` picks one
+gathered file or the sharded format (per-process shard files, a manifest
+and a pointer), and ``auto`` takes the sharded format when there is more
+than one process. ``--resume`` takes a checkpoint of either package, in
+either format, at any process count. SIGTERM (SIGINT) finishes the step in flight, saves
 ``latest`` with the loader cursor and exits 143 (130); the next launch
 with ``--resume`` continues at that batch.
 ``--device cpu`` runs on the CPU; the default, ``cuda``, raises without a
@@ -202,10 +205,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_unserved(parser, args)
-    if args.checkpoint_format == "sharded":
-        parser.error("--checkpoint-format sharded is not ported to the "
-                     "PyTorch package yet (ROADMAP.md queue 1, item 9); use "
-                     "auto or gathered")
     if args.model not in _DATASETS:
         parser.error(f"--model {args.model!r} is not ported yet; the port "
                      f"trains {sorted(_DATASETS)}")

@@ -33,9 +33,12 @@ Behavioural parity with the reference's ``main()`` orchestration
 - ZeRO-1 and the wire layer through ``partitioner`` (``parallel/``), and
   in-step gradient accumulation (``grad_accum_steps``), both in the step.
 
-``checkpoint_format`` takes ``auto`` and ``gathered``; ``auto`` is gathered
-at every process count, where the JAX package picks its sharded format for
-a multi-process job (not ported yet: ROADMAP.md queue 1, item 9).
+``checkpoint_format`` is ``auto`` (the sharded format for a multi-process
+job, whose saves gather nothing and write on the saver's thread; one
+gathered file otherwise), ``gathered`` or ``sharded``. Resume takes
+either format at any process count: the loader cursor counts global
+batches, so at the same global batch size a resume at another world
+repeats no sample and skips none.
 
 Not in this slice: the telemetry scope, the profiler and publishing.
 """
@@ -57,6 +60,7 @@ from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.robustness import (
     BadStepBudgetExceeded,
     chaos,
+    elastic,
 )
 from distributed_pytorch_example_tpu_torch.runtime import distributed as dist
 from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
@@ -123,8 +127,6 @@ class Trainer:
                 f"checkpoint_format must be auto|gathered|sharded, got "
                 f"{checkpoint_format!r}"
             )
-        if checkpoint_format == "sharded":
-            raise ckpt_lib._not_in_slice("checkpoint_format='sharded'")
         self.model = model
         self.task = task
         self.optimizer = optimizer
@@ -202,16 +204,28 @@ class Trainer:
         for the replicated parameters), for ``save/load_checkpoint``."""
         return self._step.layout(self.state)
 
+    def _sharded_ckpt(self) -> bool:
+        """``auto``: the sharded format in a multi-process job (no gather,
+        saves on the saver's thread), one gathered file otherwise (the
+        reference's single file, train.py:185-192)."""
+        if self._checkpoint_format == "auto":
+            return dist.process_count() > 1
+        return self._checkpoint_format == "sharded"
+
     def _save(self, name: str, epoch: int, loss: float, extra: dict) -> None:
         ckpt_lib.save_checkpoint(
             os.path.join(self.checkpoint_dir, name), self.state, epoch, loss,
-            extra, saver=self._saver, retain=self.checkpoint_retain,
-            layout=self.layout(),
+            extra, saver=self._saver, sharded=self._sharded_ckpt(),
+            retain=self.checkpoint_retain, layout=self.layout(),
         )
 
     def load(self, path: str):
         """Restore ``path`` (with the fallback walk) into the live state;
-        returns ``(epoch, extra)``."""
+        returns ``(epoch, extra)``. This rank's pending save lands first,
+        and every rank's (a sharded save's pointer flips on rank 0 after
+        the others have written) before any rank reads."""
+        self._saver.wait()
+        dist.barrier()
         _, epoch, extra = ckpt_lib.load_checkpoint(
             path, self.state, self.layout(), on_event=self._record_event)
         return epoch, extra
@@ -326,6 +340,11 @@ class Trainer:
         good updates since the checkpoint."""
         latest = (os.path.join(self.checkpoint_dir, ckpt_lib.LATEST_NAME)
                   if self.checkpoint_dir else None)
+        if latest and not self._rolled_back:
+            # every rank decides on the same files: a sharded save's
+            # pointer appears on rank 0's saver thread at its own moment
+            self._saver.wait()
+            dist.barrier()
         if self._rolled_back or not latest or not os.path.exists(latest):
             raise BadStepBudgetExceeded(
                 f"{self.recovery['bad_steps']} nonfinite step(s) skipped; "
@@ -335,8 +354,7 @@ class Trainer:
                 + " — persistent fault (diverged optimization, bad data, "
                 "or a real numerics bug)"
             )
-        self._saver.wait()  # an in-flight save must land before the read
-        epoch, _ = self.load(latest)
+        epoch, _ = self.load(latest)  # an in-flight save lands first
         self._rolled_back = True
         self._bad_since_recovery = 0
         self.recovery["rollbacks"] += 1
@@ -359,12 +377,6 @@ class Trainer:
         self.init()
         if self.checkpoint_dir and dist.is_coordinator():
             os.makedirs(self.checkpoint_dir, exist_ok=True)
-        if (self.checkpoint_dir and self._checkpoint_format == "auto"
-                and dist.process_count() > 1):
-            logger.info(
-                "checkpoint_format auto: gathered (the JAX package picks "
-                "its sharded format for a multi-process job; the port does "
-                "not have it yet, ROADMAP.md queue 1, item 9)")
         self._saver.wait()  # a prior fit's pending write must land first
         resuming = bool(resume and os.path.exists(resume))
         writer = MetricsWriter(self._metrics_file,
@@ -382,6 +394,12 @@ class Trainer:
                 # fallback-enabled: a torn or corrupt `latest` walks back to
                 # the newest intact ancestor, counted in `recovery`
                 start_epoch, extra = self.load(resume)
+                gap = elastic.resume_gap_steps(resume, start_epoch, extra)
+                if gap and dist.is_coordinator():
+                    logger.warning(
+                        "Resumed %d step(s) behind the newest save attempt "
+                        "(a torn or corrupt newer checkpoint was skipped)",
+                        gap)
                 best_accuracy = float(extra.get("best_accuracy", 0.0))
                 man = extra.get(intake.LOADER_MANIFEST_KEY)
                 if isinstance(man, dict):
@@ -445,6 +463,9 @@ class Trainer:
                         "training exception (training error follows)")
             else:
                 self._saver.wait()
+                # rank 0 flips a sharded pointer only after every rank's
+                # file has landed: no rank leaves fit before that
+                dist.barrier()
         total_time = time.time() - start_time
         if dist.is_coordinator():
             logger.info("Training completed in %.2fs", total_time)

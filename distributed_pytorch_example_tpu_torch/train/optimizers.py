@@ -43,11 +43,14 @@ step. A :class:`StateLayout` says where each leaf's state lives (the
 parameter, or under ZeRO-1 this rank's tile) and maps it to the full leaf
 in the JAX layout: a ``Dense`` kernel's moments transpose like the kernel,
 and a tile's gather from every rank on save (one library all-gather) and
-are sliced back out on load.
+are sliced back out on load. The sharded checkpoint format gathers
+nothing: :meth:`StateLayout.chunks` gives what this rank owns of each
+leaf, a :class:`Chunk` for a tile.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
                     Union)
@@ -418,10 +421,13 @@ class Optimizer:
             inner = {"0": {}, "1": inner}  # clip_by_global_norm: no state
         return inner
 
-    def state_tree(self, layout: "StateLayout") -> dict:
+    def state_tree(self, layout: "StateLayout", gather: bool = True) -> dict:
         """The optimizer state as the optax tree (``to_state_dict`` form),
         every moment a full leaf in the JAX layout (a torch tensor where
-        the state lives; under ZeRO-1 a collective: every rank calls it)."""
+        the state lives; under ZeRO-1 a collective: every rank calls it).
+        ``gather=False``: a sharded leaf is this rank's :class:`Chunk`
+        instead, and nothing is exchanged."""
+        to_full = layout.to_full if gather else layout.chunks
         count = self.updates
         state = self.optimizer.state
         first: dict = {}
@@ -441,7 +447,7 @@ class Optimizer:
             moments = [m if m is not None
                        else torch.zeros_like(t, dtype=torch.float32)
                        for m, t in zip(moments, layout.targets)]
-            first[name] = layout.tree(layout.to_full(moments))
+            first[name] = layout.tree(to_full(moments))
         inner = self._chain(first, count)
         if self.every_k == 1:
             return inner
@@ -454,7 +460,7 @@ class Optimizer:
         return {"mini_step": _i32(self._mini_step),
                 "gradient_step": _i32(count),
                 "inner_opt_state": inner,
-                "acc_grads": layout.tree(layout.to_full(acc)),
+                "acc_grads": layout.tree(to_full(acc)),
                 "skip_state": {}}
 
     @torch.no_grad()
@@ -574,6 +580,18 @@ def _lookup(tree, path: tuple, what: str = "leaf"):
     return node
 
 
+@dataclasses.dataclass
+class Chunk:
+    """This rank's part of a leaf that a layout shards: ``data`` (the
+    tile, in the JAX layout) sits at index ``start`` of the full leaf of
+    ``shape``, which is cut into ``count`` such chunks over the ranks."""
+
+    shape: tuple
+    start: List[int]
+    data: torch.Tensor
+    count: int
+
+
 class StateLayout:
     """Where the optimizer keeps each flax leaf's state (``targets``, in
     the JAX leaf order) and how it maps to the full leaf in the JAX
@@ -623,6 +641,13 @@ class StateLayout:
         like the targets."""
         return [leaf.from_jax(interop.as_tensor(f)).contiguous()
                 for leaf, f in zip(self.leaves, fulls)]
+
+    def chunks(self, tensors: Sequence[torch.Tensor]) -> list:
+        """What this rank owns of each leaf, with no collective: a
+        :class:`Chunk` of a leaf the layout shards, else the full leaf
+        (every rank holds it; the sharded format has rank 0 write it).
+        Nothing is sharded here."""
+        return self.to_full(tensors)
 
     def refresh(self) -> None:
         """Re-derive whatever the layout keeps beside the parameters
@@ -804,9 +829,11 @@ class ShardedUpdate:
 
 class ShardedLayout(StateLayout):
     """The ZeRO-1 layout: a sharded leaf's state lives on this rank's
-    tile. Saving gathers every rank's tiles in one library all-gather
-    (the JAX package's ``process_allgather``; a collective, so every rank
-    saves); loading slices this rank's tile out of the full leaf."""
+    tile. The gathered format gathers every rank's tiles in one library
+    all-gather (the JAX package's ``process_allgather``; a collective, so
+    every rank saves); the sharded format writes each rank's tile as it is
+    (:meth:`chunks`); loading slices this rank's tile out of the full
+    leaf."""
 
     def __init__(self, update: ShardedUpdate):
         self.update = update
@@ -836,10 +863,31 @@ class ShardedLayout(StateLayout):
                 offset += n
         return out
 
+    def chunks(self, tensors: Sequence[torch.Tensor]) -> list:
+        """A sharded leaf's tile as this rank's :class:`Chunk`: rows
+        ``rank * chunk`` on of ``dims[i]`` in the JAX layout, the place
+        JAX's ``psum_scatter`` gives it."""
+        u = self.update
+        out = []
+        for leaf, t, d, cs, full in zip(self.leaves, tensors, u.dims,
+                                        u.chunk_shapes, self.full_shapes()):
+            if d is None:
+                out.append(leaf.to_jax(t))
+                continue
+            start = [0] * len(full)
+            start[d] = u.rank * cs[d]
+            out.append(Chunk(full, start, t.reshape(cs), u.world))
+        return out
+
     def from_full(self, fulls: Sequence) -> List[torch.Tensor]:
+        """As :meth:`StateLayout.from_full`; a sharded leaf may also come
+        as this rank's :class:`Chunk` (a sharded load keeps only that)."""
         u = self.update
         out = []
         for leaf, f, d, cs in zip(self.leaves, fulls, u.dims, u.chunk_shapes):
+            if isinstance(f, Chunk):
+                out.append(interop.as_tensor(f.data).reshape(cs).clone())
+                continue
             f = interop.as_tensor(f)
             if d is None:
                 out.append(leaf.from_jax(f).contiguous())

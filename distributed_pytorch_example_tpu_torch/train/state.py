@@ -57,17 +57,19 @@ class TrainState:
     rng: np.ndarray = dataclasses.field(default_factory=lambda: seed_key(0))
 
 
-def state_tree(state: TrainState, layout: Optional[StateLayout] = None
-               ) -> dict:
+def state_tree(state: TrainState, layout: Optional[StateLayout] = None,
+               gather: bool = True) -> dict:
     """The state as the flax tree, its tensors where they live (views in
     the JAX layout; under ZeRO-1 the moments are gathered, a collective).
-    ``layout`` defaults to the replicated one of ``state.model``."""
+    ``layout`` defaults to the replicated one of ``state.model``.
+    ``gather=False``: a leaf the layout shards is this rank's ``Chunk``
+    instead, and nothing is exchanged (the sharded checkpoint format)."""
     if layout is None:
         layout = StateLayout(state.model)
     return {
         "step": np.asarray(state.step, dtype=np.int32),
         "params": interop.params_to_flax(state.model),
-        "opt_state": state.optimizer.state_tree(layout),
+        "opt_state": state.optimizer.state_tree(layout, gather=gather),
         "model_state": interop.model_state_to_flax(state.model),
         "rng": np.array(state.rng, dtype=np.uint32),
     }

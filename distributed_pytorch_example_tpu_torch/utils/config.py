@@ -161,9 +161,9 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--checkpoint-format", type=str, default="auto",
                         choices=("auto", "gathered", "sharded"),
                         help="gathered: one all-gathered file (reference "
-                        "parity); auto: gathered at every process count "
-                        "(the JAX package picks sharded for several "
-                        "processes); sharded is not ported yet")
+                        "parity); sharded: per-process shard files, a "
+                        "manifest and a pointer, with no gather; auto: "
+                        "sharded for several processes, else gathered")
     parser.add_argument("--metrics-file", type=str, default=None,
                         help="JSONL epoch-metrics path (default: "
                         "<checkpoint-dir>/metrics.jsonl)")

@@ -62,6 +62,20 @@ def test_port_and_chip_smoke_import_no_jax():
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_launch_files_run_the_port_alone():
+    """``launch/`` holds a shell script and a Dockerfile, which the import
+    scan cannot read: neither names the JAX package, its train.py or JAX."""
+    launch = pathlib.Path(port.__file__).parent / "launch"
+    assert sorted(p.name for p in launch.iterdir()) == ["Dockerfile",
+                                                        "entrypoint.sh"]
+    for path in launch.iterdir():
+        code = "\n".join(line for line in path.read_text().splitlines()
+                         if not line.lstrip().startswith("#"))
+        assert "distributed_pytorch_example_tpu/" not in code, path.name
+        assert "train.py" not in code and "jax" not in code.lower(), path.name
+        assert "distributed_pytorch_example_tpu_torch" in code, path.name
+
+
 def test_scan_catches_a_jax_import(tmp_path):
     src = tmp_path / "m.py"
     src.write_text(
@@ -110,7 +124,7 @@ def test_engine_refuses_out_of_slice_options():
 def test_train_cli_refuses_flags_outside_the_slice():
     for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"],
                  ["--moe-experts", "2"],
-                 ["--checkpoint-format", "sharded"],
+                 ["--profile-dir", "/tmp/prof"],
                  ["--optimizer", "adafactor", "--zero1"],
                  ["--model", "llama", "--dataset", "synthetic"],
                  ["--model", "gpt2", "--dataset", "synthetic"]):

@@ -57,6 +57,9 @@ from distributed_pytorch_example_tpu_torch.data import (
 )
 from distributed_pytorch_example_tpu_torch.models import GPT2, SimpleNet
 from distributed_pytorch_example_tpu_torch.parallel import data_parallel
+from distributed_pytorch_example_tpu_torch.robustness.integrity import (
+    CheckpointCorruptError,
+)
 from distributed_pytorch_example_tpu_torch.train.checkpoint import (
     SHARDED_MAGIC,
 )
@@ -386,15 +389,16 @@ def test_skip_predicate_counts_nonfinite_elements_as_jax_does(value, bad):
 def test_refused_options_raise(tmp_path):
     model = SimpleNet(device="cpu")
     opt = make_optimizer(model.parameters())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="checkpoint_format"):
         Trainer(model, ClassificationTask(), opt, checkpoint_dir=str(tmp_path),
-                checkpoint_format="sharded")
-    # a JAX sharded-format pointer file is refused on load, not misread
+                checkpoint_format="bogus")
+    # a sharded pointer whose version dir is gone is refused on load, not
+    # misread as a gathered file
     pointer = tmp_path / "latest_model.ckpt"
-    pointer.write_bytes(SHARDED_MAGIC + b"00000001\n")
+    pointer.write_bytes(SHARDED_MAGIC + b"00000001")
     trainer = Trainer(model, ClassificationTask(), opt,
                       checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(CheckpointCorruptError, match="no intact checkpoint"):
         trainer.load(str(pointer))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(ClassificationTask(), sentinels=True)

@@ -217,16 +217,17 @@ def _nan_on_rank_1(rank, world):
 CKPT_EPOCHS = 3
 
 
-def _ckpt_trainer(zero1, checkpoint_dir, world):
+def _ckpt_trainer(zero1, checkpoint_dir, world, checkpoint_format="auto"):
     """Adam on the seed-0 GPT-2 through Trainer.fit, ZeRO-1 or replicated
-    across the processes, recording each step's loss."""
+    across the processes, recording each step's loss (``auto`` saves the
+    sharded format at world 2)."""
     model = GPT2(**KW, logits_mode="hidden", device="cpu", seed=0)
     part = (data_parallel(world, dp_shard_opt_state=True,
                           opt_shard_min_size=MIN_SHARD) if zero1 else None)
     trainer = Trainer(model, CausalLMTask(),
                       make_optimizer(model.parameters(), "adam", LR["adam"]),
                       partitioner=part, checkpoint_dir=checkpoint_dir,
-                      log_every=1)
+                      log_every=1, checkpoint_format=checkpoint_format)
     losses, step_fn = [], trainer.train_step
 
     def step(state, batch):
@@ -251,10 +252,11 @@ def _checkpoint_cases(rank, world, port):
     """A ZeRO-1 epoch saved gathered (rank 0 returns the file's bytes); an
     uninterrupted replicated run of CKPT_EPOCHS epochs; and the same run
     resumed twice with the mode flipped: replicated epoch 0, ZeRO-1 epoch
-    1, replicated epoch 2."""
+    1, replicated epoch 2 (saved in ``auto``'s sharded format)."""
     root = os.path.join(tempfile.gettempdir(), f"test_torch_zero1_{port}")
     latest = "latest_model.ckpt"
-    zero1, _ = _ckpt_trainer(True, os.path.join(root, "zero1"), world)
+    zero1, _ = _ckpt_trainer(True, os.path.join(root, "zero1"), world,
+                             checkpoint_format="gathered")
     zero1.fit(ckpt_loader(rank, world), None, epochs=1)
     blob = None
     if rank == 0:
