@@ -141,11 +141,29 @@ last line:
    2, per rank, beside the card's name and power limit. The ``launch``
    fields of the K1 and K3 entries carry rank 0's launches after the
    restart.
+14. decode — speculative decoding (self-speculation, K = 4: the draft is
+   a second decode module over the target's own weight tensors and a
+   pool of its own) and ``generate()`` over the contiguous KV cache:
+   (a) GPT-2 124M in float32 on phase 4's workload, greedy: every request
+   completes, every token within phase 4's 1e-3 logit gap of the plain
+   forward's argmax, fewer decode boundaries than phase 4's greedy run,
+   K2 launched K times per layer at every boundary (the draft's one-token
+   steps; the verify chunk takes the plain version), each stream phase
+   4's or parted from it at a near-tie; (b) the same at temperature 1.0
+   and top-k 50 against phase 4's sampled streams (a parting must be a
+   near-tie of the two choices' Gumbel scores under the plain forward);
+   (c) LLaMA 125M greedy against the plain forward as phase 12 holds it;
+   (d) ``generate()`` on GPT-2 124M, 8 workload prompts x 64 greedy
+   tokens, against the plain forward and phase 4's greedy streams, no K2
+   launch. Prints tokens/s, TPOT p50/p99, the accept rate and a
+   boundary's draft and verify ms beside phase 4's runs, generate()'s ms
+   a token, and the phase's time. The ``decode`` field of the K2 entry
+   carries its launches in (a)-(c).
 
 Each main path (serve, train, zero1, checkpoint, bert, vision, llama's
-train and serve, and launch's world-1 epoch) runs with every launch count
-set to 0 just before it and read just after; launch's ranks count in
-their own processes, from 0.
+train and serve, launch's world-1 epoch, and decode's runs) runs with
+every launch count set to 0 just before it and read just after; launch's
+ranks count in their own processes, from 0.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1060,7 +1078,8 @@ def serve(torch):
                      f"{launches}; preempted {m['preempted']}")
         runs[label] = (report, launches)
     check_against_plain(torch, model, runs["greedy"][0])
-    return sum(launches for _, launches in runs.values())
+    return (sum(launches for _, launches in runs.values()),
+            {label: report for label, (report, _) in runs.items()})
 
 
 def check_against_plain(torch, model, report, plain=None, vocab=50257,
@@ -3487,6 +3506,300 @@ def launch_save_times(ref, smi_line):
                       f"final state ({smi_line}): " + "; ".join(parts))
 
 
+# ---------------------------------------------------------------------------
+# 14. decode: speculative decoding and generate() at full width
+# ---------------------------------------------------------------------------
+
+SPEC_TOKENS = 4
+# the gap phase 4 allows a greedy token below the plain forward's argmax
+# logit, and within which two runs' draws may part: float32 with TF32 off,
+# the kernel's and the plain version's logits differ in summation order
+# only (phase 4's check_against_plain)
+DECODE_LOGIT_TOL = 1e-3
+GENERATE_PROMPTS, GENERATE_NEW = 8, 64
+
+
+class SpanTimes:
+    """A trace sink for the engine's spans: host ms by span name (the
+    part before any ``:``), in arrival order."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def add_complete(self, name, ts_us, dur_us):
+        self.ms.setdefault(name.split(":")[0], []).append(dur_us / 1e3)
+
+    def mean(self, name):
+        vals = self.ms.get(name, [])
+        return sum(vals) / len(vals) if vals else float("nan")
+
+
+def plain_logits(torch, plain, prompt, tokens):
+    """The plain forward's float32 logits at each generated position of a
+    stream: row i scores token i."""
+    seq = torch.tensor([list(prompt) + list(tokens)], device="cuda")
+    plen = len(prompt)
+    with torch.inference_mode():
+        return plain(seq)[0, plen - 1:plen - 1 + len(tokens)].float()
+
+
+def greedy_gap(torch, logits, tokens):
+    """How far the worst token of a greedy stream sits below its row's
+    argmax logit."""
+    chosen = logits.gather(1, torch.tensor(tokens, device="cuda")[:, None])
+    return (logits.max(dim=1).values - chosen[:, 0]).max().item()
+
+
+def first_split(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def parted_streams(torch, plain, report, ref, vocab, phase, label,
+                   sample=None):
+    """Hold each stream of ``report`` to the same request's stream in
+    ``ref``: equal, or parted at a near-tie. At the first token where they
+    differ (the same prefix before it), the plain forward scores both
+    choices: greedy, their logits within ``DECODE_LOGIT_TOL``; sampled
+    (``sample`` = (temperature, top_k)), their Gumbel scores, logits /
+    temperature plus the request's noise at that position, within the
+    tolerance over the temperature, or one of them that close to the
+    top-k edge. Returns how many streams are equal."""
+    from distributed_pytorch_example_tpu_torch.serving import Request
+    from distributed_pytorch_example_tpu_torch.serving.sampling import (
+        gumbel_noise,
+    )
+
+    reqs = {r.rid: r for r in workload(Request, vocab=vocab)}
+    equal = 0
+    for rid, r in sorted(report["results"].items()):
+        got, want = r["tokens"], ref["results"][rid]["tokens"]
+        at = first_split(got, want)
+        if at is None:
+            check(len(got) == len(want), f"{label} {rid}: streams of "
+                  f"{len(got)} and {len(want)} tokens")
+            equal += 1
+            continue
+        req = reqs[rid]
+        row = plain_logits(torch, plain, req.prompt, got[:at + 1])[at]
+        a, b = got[at], want[at]
+        if sample is None:
+            gap = (row.max() - min(row[a], row[b])).item()
+            edge = float("inf")
+            tol = DECODE_LOGIT_TOL
+        else:
+            temperature, top_k = sample
+            scaled = row / temperature
+            score = scaled + gumbel_noise(req.seed, len(req.prompt) + at,
+                                          vocab).to("cuda")
+            gap = abs(score[a] - score[b]).item()
+            kth = torch.topk(scaled, top_k).values[-1]
+            edge = min(abs(scaled[a] - kth), abs(scaled[b] - kth)).item()
+            tol = DECODE_LOGIT_TOL / temperature
+        check(min(gap, edge) <= tol,
+              f"{label} {rid}: token {at} parts ({a} against {b}) by "
+              f"{gap:.3e} (top-k edge {edge:.3e}), not a near-tie within "
+              f"{tol}")
+        say(phase, f"{label} {rid}: parts at token {at} of {len(got)} "
+                   f"({a} against {b}), a near-tie: gap {gap:.3e}, top-k "
+                   f"edge {edge:.3e} (tol {tol})")
+    return equal
+
+
+def spec_serve(torch, model, label, vocab, phase="decode", **kw):
+    """16 requests through a self-speculating engine (K = SPEC_TOKENS)
+    with every launch count set to 0 just before the run; checks every
+    request completes and K2 launched K times per layer at every boundary
+    (the draft's steps; the verify chunk launches none). Returns the
+    report, K2's launches and the run's span times."""
+    from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        paged_flash_decode,
+    )
+    from distributed_pytorch_example_tpu_torch.serving import (
+        InferenceEngine,
+        Request,
+    )
+    from distributed_pytorch_example_tpu_torch.serving.engine import (
+        self_draft,
+    )
+
+    engine = InferenceEngine(model, num_slots=SLOTS, device="cuda",
+                             draft_model=self_draft(model),
+                             spec_tokens=SPEC_TOKENS, **kw)
+    engine.warmup()
+    spans = SpanTimes()
+    engine.trace = spans
+    torch.cuda.synchronize()
+    reset_counts()
+    report = engine.run(workload(Request, vocab=vocab))
+    torch.cuda.synchronize()
+    launches = paged_flash_decode.launches
+    m = report["metrics"]
+    statuses = {r["status"] for r in report["results"].values()}
+    check(statuses == {"done"} and m["completed"] == 16,
+          f"{label}: not every request completed: {statuses}")
+    want = m["decode_steps"] * SPEC_TOKENS * LAYERS
+    check(launches > 0 and launches == want,
+          f"{label}: K2 launched {launches} times, want decode_steps "
+          f"{m['decode_steps']} x {SPEC_TOKENS} x {LAYERS} = {want}")
+    return report, launches, spans
+
+
+def spec_line(m, spans, launches):
+    return (f"{m['generated_tokens']} tokens in {m['elapsed_s']:.3f} s = "
+            f"{m['tokens_per_sec']:.1f} tokens/s; decode "
+            f"{m['decode_tokens_per_sec']:.1f} tokens/s; TPOT p50 "
+            f"{m['tpot_ms']['p50']:.2f} p99 {m['tpot_ms']['p99']:.2f} ms; "
+            f"decode_steps {m['decode_steps']}; accept rate "
+            f"{m['spec_accept_rate']:.4f} ({m['spec_accepted']} of "
+            f"{m['spec_proposed']}); a boundary: draft_propose "
+            f"{spans.mean('draft_propose'):.2f} ms + verify_step "
+            f"{spans.mean('verify_step'):.2f} ms; K2 launches {launches}")
+
+
+def plain_line(m):
+    return (f"{m['tokens_per_sec']:.1f} tokens/s, decode "
+            f"{m['decode_tokens_per_sec']:.1f}, TPOT p50 "
+            f"{m['tpot_ms']['p50']:.2f} p99 {m['tpot_ms']['p99']:.2f} ms, "
+            f"decode_steps {m['decode_steps']}")
+
+
+def decode_gpt2(torch, serve_runs):
+    """(a) greedy and (b) sampled self-speculation on GPT-2 124M, held to
+    phase 4's runs; (d) generate(). Returns K2's launches in (a) and
+    (b)."""
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+
+    model = GPT2(decode=True, paged_num_blocks=NUM_BLOCKS,
+                 paged_block_size=BLOCK_SIZE, paged_max_blocks=MAX_BLOCKS,
+                 device="cuda", seed=0)
+    plain = GPT2(device="cuda", seed=0).eval()
+    greedy, sampled = serve_runs["greedy"], serve_runs["sampled"]
+    # (a) greedy: every token is the plain forward's argmax within the gap
+    report, launches_a, spans = spec_serve(torch, model, "(a) greedy",
+                                           50257, temperature=0.0)
+    m, m4 = report["metrics"], greedy["metrics"]
+    worst = max(greedy_gap(torch, plain_logits(
+        torch, plain, workload_prompt(rid), r["tokens"]), r["tokens"])
+        for rid, r in report["results"].items())
+    check(worst <= DECODE_LOGIT_TOL,
+          f"(a) a greedy token is {worst:.2e} below the plain argmax logit "
+          f"(tol {DECODE_LOGIT_TOL})")
+    check(m["decode_steps"] < m4["decode_steps"],
+          f"(a) {m['decode_steps']} speculative boundaries, not fewer than "
+          f"phase 4's {m4['decode_steps']} decode steps")
+    equal = parted_streams(torch, plain, report, greedy, 50257, "decode",
+                           "(a) greedy")
+    say("decode", f"(a) GPT-2 greedy, K={SPEC_TOKENS}: {spec_line(m, spans, launches_a)}")
+    say("decode", f"(a) phase 4's greedy run without speculation: "
+                  f"{plain_line(m4)}")
+    say("decode", f"(a) every token of the 16 streams within "
+                  f"{worst:.2e} of the plain forward's argmax (tol "
+                  f"{DECODE_LOGIT_TOL}); {equal} of 16 streams equal phase "
+                  f"4's")
+    # (b) sampled at temperature 1.0, top-k 50
+    report, launches_b, spans = spec_serve(torch, model, "(b) sampled",
+                                           50257, temperature=1.0, top_k=50)
+    m, m4 = report["metrics"], sampled["metrics"]
+    equal = parted_streams(torch, plain, report, sampled, 50257, "decode",
+                           "(b) sampled", sample=(1.0, 50))
+    say("decode", f"(b) GPT-2 temperature 1.0 top-k 50, K={SPEC_TOKENS}: "
+                  f"{spec_line(m, spans, launches_b)}")
+    say("decode", f"(b) phase 4's sampled run without speculation: "
+                  f"{plain_line(m4)}; {equal} of 16 streams equal")
+    del model
+    torch.cuda.empty_cache()
+    decode_generate(torch, plain, greedy)
+    del plain
+    torch.cuda.empty_cache()
+    return launches_a + launches_b
+
+
+def decode_generate(torch, plain, greedy):
+    """(d) generate() over the contiguous cache on GPT-2 124M (float32):
+    the first GENERATE_PROMPTS prompts of the workload, one call each,
+    GENERATE_NEW greedy tokens; each token the plain forward's argmax
+    within the gap, each stream phase 4's paged one (on the tokens that
+    run served) or parted from it at a near-tie."""
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
+        paged_flash_decode,
+    )
+    from distributed_pytorch_example_tpu_torch.serving import Request
+    from distributed_pytorch_example_tpu_torch.train import generate
+
+    model = GPT2(decode=True, device="cuda", seed=0)
+    reqs = workload(Request)[:GENERATE_PROMPTS]
+    generate(model, [reqs[0].prompt], 2, temperature=0.0)  # first call
+    torch.cuda.synchronize()
+    reset_counts()
+    streams, secs = {}, 0.0
+    for req in reqs:
+        t0 = time.perf_counter()
+        out = generate(model, [req.prompt], GENERATE_NEW, temperature=0.0)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        streams[req.rid] = out[0, len(req.prompt):].tolist()
+    # the contiguous cache's attention is the plain version, as in JAX
+    check(paged_flash_decode.launches == 0,
+          f"(d) generate() launched K2 {paged_flash_decode.launches} times")
+    worst = max(greedy_gap(torch, plain_logits(
+        torch, plain, req.prompt, streams[req.rid]), streams[req.rid])
+        for req in reqs)
+    check(worst <= DECODE_LOGIT_TOL,
+          f"(d) a generate() token is {worst:.2e} below the plain argmax "
+          f"logit (tol {DECODE_LOGIT_TOL})")
+    served = {"results": {
+        rid: {"tokens": streams[rid][:len(greedy["results"][rid]["tokens"])]}
+        for rid in streams}}
+    equal = parted_streams(torch, plain, served, {"results": {
+        rid: greedy["results"][rid] for rid in streams}}, 50257, "decode",
+        "(d) generate")
+    ms = secs * 1e3 / (GENERATE_PROMPTS * GENERATE_NEW)
+    say("decode", f"(d) generate(): {GENERATE_PROMPTS} prompts x "
+                  f"{GENERATE_NEW} greedy tokens, one call each, "
+                  f"{ms:.2f} ms a token (prefill included; "
+                  f"{secs:.3f} s in all); every token within {worst:.2e} "
+                  f"of the plain argmax; {equal} of {GENERATE_PROMPTS} "
+                  f"streams equal phase 4's paged greedy streams")
+
+
+def decode_llama(torch):
+    """(c) greedy self-speculation on LLaMA 125M (GQA 12/4, RoPE), held to
+    the plain forward as phase 12 holds its serving. Returns K2's
+    launches."""
+    from distributed_pytorch_example_tpu_torch.models import Llama
+
+    model = Llama(decode=True, paged_num_blocks=NUM_BLOCKS,
+                  paged_block_size=BLOCK_SIZE,
+                  paged_max_blocks=LLAMA_MAX_BLOCKS, device="cuda", seed=0)
+    report, launches, spans = spec_serve(torch, model, "(c) llama greedy",
+                                         LLAMA_VOCAB, temperature=0.0)
+    plain = Llama(device="cuda", seed=0).eval()
+    check_against_plain(torch, model, report, plain=plain,
+                        vocab=LLAMA_VOCAB, phase="decode")
+    worst = max(greedy_gap(torch, plain_logits(
+        torch, plain, workload_prompt(rid, LLAMA_VOCAB), r["tokens"]),
+        r["tokens"]) for rid, r in report["results"].items())
+    check(worst <= DECODE_LOGIT_TOL,
+          f"(c) a greedy token is {worst:.2e} below the plain argmax logit "
+          f"(tol {DECODE_LOGIT_TOL})")
+    say("decode", f"(c) LLaMA greedy, K={SPEC_TOKENS}: "
+                  f"{spec_line(report['metrics'], spans, launches)}; every "
+                  f"token within {worst:.2e} of the plain argmax")
+    del model, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode(torch, serve_runs):
+    """Phase 14; returns K2's launches on its runs."""
+    t0 = time.perf_counter()
+    launches = decode_gpt2(torch, serve_runs)
+    launches += decode_llama(torch)
+    say("decode", f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def free_port():
     import socket
 
@@ -3518,7 +3831,7 @@ def main() -> int:
         k1_fwd, k1_bwd = check_flash(torch, bandwidth)
         k3a, k3b = check_ring(torch, bandwidth)
         phase = "serve"
-        k2["launches"] = serve(torch)
+        k2["launches"], serve_runs = serve(torch)
         phase = "cli"
         cli()
         phase = "train"
@@ -3544,6 +3857,10 @@ def main() -> int:
             entry["launch"] = {"launches": counts[key],
                                "run": "phase 13 (a), rank 0 after the "
                                       "restart"}
+        phase = "decode"
+        k2["decode"] = {"launches": decode(torch, serve_runs),
+                        "run": "phase 14 (a)-(c): the drafts' one-token "
+                               "steps"}
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)

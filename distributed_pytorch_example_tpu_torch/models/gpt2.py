@@ -18,7 +18,12 @@ takes the tied head from :meth:`GPT2.head_params`.
 With ``decode=True`` and ``paged_num_blocks > 0`` the model serves over
 the paged KV pool (serving/engine.py): each call takes the engine's
 ``page_table`` / ``row_lens``, and the learned position table is gathered
-per row at ``row_lens + arange(seq)``, clamped to ``max_len - 1``.
+per row at ``row_lens + arange(seq)``, clamped to ``max_len - 1``. A
+``seq > 1`` call is a prefill, or with ``verify=True`` (default
+``paged_verify``) a speculative verify chunk. With ``decode=True`` and no
+pool the model decodes over a contiguous KV cache that
+:meth:`GPT2.init_cache` sizes (``train/generate.py``); the position table
+is read from a cursor that advances with it.
 
 Weights are drawn on the CPU from an explicit generator (``seed``) and
 copied to ``device``, so the same seed gives the same weights everywhere.
@@ -35,7 +40,9 @@ from distributed_pytorch_example_tpu_torch.models.transformer import (
     DropoutDraws,
     TransformerStack,
     _not_in_slice,
+    clear_cache,
     dropout,
+    init_cache,
     layer_norm,
     normal_,
     tied_head_logits,
@@ -74,8 +81,6 @@ class GPT2(nn.Module):
             )
         if pipe_axis is not None:
             raise _not_in_slice("pipeline parallelism (pipe_axis)")
-        if paged_verify:
-            raise _not_in_slice("the speculative verify chunk (paged_verify)")
         if logits_mode not in ("full", "hidden"):
             raise ValueError(
                 f"logits_mode must be 'full' or 'hidden', got {logits_mode!r}"
@@ -90,6 +95,8 @@ class GPT2(nn.Module):
         self.paged_num_blocks = paged_num_blocks
         self.paged_block_size = paged_block_size
         self.paged_max_blocks = paged_max_blocks
+        self.paged_verify = paged_verify
+        self.pos_index = 0  # the contiguous cache's position cursor
         self.dropout_rate = dropout_rate
         self.draws = DropoutDraws(seed)
         # build without storage, then materialise once on the device
@@ -129,14 +136,34 @@ class GPT2(nn.Module):
         self.decoder.reset_parameters(generator)
         self.final_ln.reset_parameters()
 
+    def init_cache(self, batch: int, length: int) -> None:
+        """Size a fresh contiguous KV cache (``decode=True`` without the
+        pool) for ``batch`` rows of ``length`` positions."""
+        init_cache(self, batch, length)
+        self.pos_index = 0
+
+    def clear_cache(self) -> None:
+        clear_cache(self)
+        self.pos_index = 0
+
     def forward(self, tokens: torch.Tensor, *,
                 page_table: Optional[torch.Tensor] = None,
-                row_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_lens: Optional[torch.Tensor] = None,
+                verify: Optional[bool] = None) -> torch.Tensor:
         """(B, S) int tokens -> (B, S, vocab) float32 logits, or the
         (B, S, D) final hidden states in ``dtype`` when
         ``logits_mode="hidden"``."""
         seq = tokens.shape[1]
-        if self.decode:
+        if verify is None:
+            verify = self.paged_verify
+        if self.decode and not self.paged_num_blocks:
+            # the position cursor mirrors the attention caches' cursors;
+            # the slice start is clamped into the table as JAX's
+            # dynamic_slice clamps it
+            start = min(self.pos_index, self.max_len - seq)
+            pos = self.wpe[:, start:start + seq]
+            self.pos_index += seq
+        elif self.decode:
             if row_lens is None:
                 raise ValueError("paged decode needs row_lens (and page_table)")
             # rows sit at independent offsets: gather the learned position
@@ -152,7 +179,7 @@ class GPT2(nn.Module):
                 else None)
         x = dropout(x, self.dropout_rate, draw, (0, 0))
         x = self.decoder(x, page_table=page_table, row_lens=row_lens,
-                         draw=draw)
+                         draw=draw, verify=verify)
         x = layer_norm(self.final_ln, x, self.dtype)
         if self.logits_mode == "hidden":
             return x

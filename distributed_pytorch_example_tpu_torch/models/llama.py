@@ -19,15 +19,18 @@ heads, MLP 2048). Compute in ``dtype`` with float32 parameters, as flax's
 the fused chunked cross-entropy, which takes the head from
 :meth:`Llama.head_params`. With ``decode=True`` and the paged fields set
 the model serves over the paged KV pool (serving/engine.py), RoPE at each
-row's ``row_lens + arange(seq)``. ``remat`` recomputes each block in the
-backward pass. LLaMA has no dropout, in JAX as here.
+row's ``row_lens + arange(seq)``; a ``seq > 1`` call is a prefill, or with
+``verify=True`` (default ``paged_verify``) a speculative verify chunk.
+With ``decode=True`` and no pool it decodes over a contiguous KV cache
+that :meth:`Llama.init_cache` sizes (``train/generate.py``), RoPE at the
+cache's cursor. ``remat`` recomputes each block in the backward pass.
+LLaMA has no dropout, in JAX as here.
 
 Parameter names are flax's (``tok_embed``, ``layers.<i>`` = ``layer_<i>``
 with ``attn/{q,k,v,o}``, ``ln1``/``ln2`` ``scale``, ``mlp/{gate,up,
 down}``, then ``final_ln`` and ``lm_head``), so :mod:`interop` maps one
-tree onto the other. Not in it, and refused: mixture-of-experts blocks,
-pipeline stages and the speculative verify chunk (ROADMAP.md items 15 and
-B).
+tree onto the other. Not in it, and refused: mixture-of-experts blocks
+and pipeline stages (ROADMAP.md item 15).
 """
 
 from __future__ import annotations
@@ -41,7 +44,9 @@ from torch import nn
 from distributed_pytorch_example_tpu_torch.models.transformer import (
     MultiHeadAttention,
     _not_in_slice,
+    clear_cache,
     dense,
+    init_cache,
     lecun_normal_,
     normal_,
     run_blocks,
@@ -114,9 +119,9 @@ class LlamaBlock(nn.Module):
         self.ln1.reset_parameters()
         self.ln2.reset_parameters()
 
-    def forward(self, x, *, page_table=None, row_lens=None):
+    def forward(self, x, *, page_table=None, row_lens=None, verify=False):
         x = x + self.attn(self.ln1(x), page_table=page_table,
-                          row_lens=row_lens)
+                          row_lens=row_lens, verify=verify)
         return x + self.mlp(self.ln2(x))
 
 
@@ -155,9 +160,6 @@ class Llama(nn.Module):
             raise _not_in_slice("pipeline parallelism (pipe_axis)")
         if seq_axis is not None:
             raise _not_in_slice("sequence parallelism (seq_axis)")
-        if paged_verify:
-            raise _not_in_slice("the speculative verify chunk (paged_verify, "
-                                "item B)")
         if logits_mode not in ("full", "hidden"):
             raise ValueError(
                 f"logits_mode must be 'full' or 'hidden', got {logits_mode!r}"
@@ -177,6 +179,7 @@ class Llama(nn.Module):
         self.paged_num_blocks = paged_num_blocks
         self.paged_block_size = paged_block_size
         self.paged_max_blocks = paged_max_blocks
+        self.paged_verify = paged_verify
         with torch.device("meta"):
             self.tok_embed = nn.Embedding(vocab_size, model_dim)
             self.layers = nn.ModuleList(
@@ -211,17 +214,28 @@ class Llama(nn.Module):
         self.final_ln.reset_parameters()
         normal_(self.lm_head, 0.02, generator)
 
+    def init_cache(self, batch: int, length: int) -> None:
+        """Size a fresh contiguous KV cache (``decode=True`` without the
+        pool) for ``batch`` rows of ``length`` positions."""
+        init_cache(self, batch, length)
+
+    def clear_cache(self) -> None:
+        clear_cache(self)
+
     def forward(self, tokens: torch.Tensor, *,
                 page_table: Optional[torch.Tensor] = None,
-                row_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_lens: Optional[torch.Tensor] = None,
+                verify: Optional[bool] = None) -> torch.Tensor:
         """(B, S) int tokens -> (B, S, vocab) float32 logits, or the
         (B, S, D) final hidden states in ``dtype`` when
         ``logits_mode="hidden"``."""
-        if self.decode and row_lens is None:
+        if self.paged_num_blocks and row_lens is None:
             raise ValueError("paged decode needs row_lens (and page_table)")
+        if verify is None:
+            verify = self.paged_verify
         x = self.tok_embed(tokens).to(self.dtype)
         x = run_blocks(self.layers, x, self.remat, page_table=page_table,
-                       row_lens=row_lens)
+                       row_lens=row_lens, verify=verify)
         x = self.final_ln(x)
         if self.logits_mode == "hidden":
             return x

@@ -4,7 +4,11 @@ Parameter names mirror the flax modules (``q/k/v/o``, ``up/down``,
 ``ln1/ln2``) so :mod:`interop` maps one tree onto the other by name.
 Attention routes through ``ops.attention.dot_product_attention``; the
 paged decode path through ``ops.paged_attention.paged_decode_attention``,
-which launches the CUDA paged-decode kernel on the card.
+which launches the CUDA paged-decode kernel on the card for one-token
+steps. Decode mode (``decode=True``) keeps K/V across calls in one of two
+caches: the paged pool the serving engine addresses through page tables
+(``paged_num_blocks > 0``), or a contiguous per-call cache that
+``train/generate.py`` sizes before each generation (:func:`init_cache`).
 
 Compute dtype follows flax's ``dtype=``: parameters stay float32, and
 each module casts its parameters and inputs to ``dtype`` where it uses
@@ -20,7 +24,7 @@ with grouped-query heads (``num_kv_heads``) and rotary positions
 carried block by block to ``dot_product_attention``, float32 or bfloat16,
 dropout (:func:`dropout`) and per-block rematerialisation (``remat``).
 Not in it, and refused when asked for: mixture-of-experts MLPs and
-sequence parallelism; the contiguous (non-paged) KV cache.
+sequence parallelism.
 
 Dropout masks are drawn from a generator seeded from the forward call's
 ``draw`` (model seed, train step, process, call in the step; see
@@ -171,7 +175,15 @@ class MultiHeadAttention(nn.Module):
     so writes past a row's true length land harmlessly. The engine passes
     ``page_table`` (batch, max_blocks) int32 and ``row_lens`` (batch,)
     int32 with every call; the module never changes them. Under ``rope``
-    both prefill and decode rotate at ``row_lens + arange(seq)``.
+    prefill, decode and verify rotate at ``row_lens + arange(seq)``. A
+    ``seq > 1`` call is a prefill of fresh rows, or, with ``verify=True``,
+    a speculative verify chunk: a decode of ``seq`` tokens per row.
+
+    With ``decode=True`` and no pool the module keeps a contiguous cache
+    ``cache_k`` / ``cache_v`` of (batch, cache_len, kv_heads, head_dim)
+    and a cursor, sized by :meth:`init_cache`. They are plain attributes,
+    not buffers: the cache is made per generation and never enters the
+    ``state_dict``, so a decode model loads the training model's weights.
     """
 
     def __init__(
@@ -197,8 +209,6 @@ class MultiHeadAttention(nn.Module):
         if num_heads % kv_heads:
             raise ValueError(f"num_heads {num_heads} not divisible by "
                              f"num_kv_heads {kv_heads}")
-        if decode and paged_num_blocks <= 0:
-            raise _not_in_slice("the contiguous decode cache (generate())")
         if decode and not causal:
             raise ValueError("decode mode supports causal attention only")
         self.num_heads, self.head_dim = num_heads, head_dim
@@ -217,7 +227,9 @@ class MultiHeadAttention(nn.Module):
         self.k = nn.Linear(model_dim, kv_heads * head_dim)
         self.v = nn.Linear(model_dim, kv_heads * head_dim)
         self.o = nn.Linear(features, model_dim)
-        if decode:
+        self.cache_k = self.cache_v = None
+        self.cache_index = 0
+        if decode and paged_num_blocks > 0:
             nb, bs, mb = paged_num_blocks, paged_block_size, paged_max_blocks
             if nb < 2 or bs < 1 or mb < 1:
                 raise ValueError(
@@ -236,12 +248,30 @@ class MultiHeadAttention(nn.Module):
         for lin in (self.q, self.k, self.v, self.o):
             lecun_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
-        if self.decode:
+        if self.paged_num_blocks > 0:
             self.pages_k.zero_()
             self.pages_v.zero_()
 
+    def init_cache(self, batch: int, length: int) -> None:
+        """Size a fresh contiguous cache of ``length`` positions for
+        ``batch`` rows (zeros, in the compute dtype, on the weights'
+        device) and set the cursor to 0."""
+        if not self.decode or self.paged_num_blocks > 0:
+            raise ValueError("the contiguous cache needs decode=True "
+                             "without paged_num_blocks")
+        shape = (batch, length, self.num_kv_heads, self.head_dim)
+        dev = self.q.weight.device
+        self.cache_k = torch.zeros(shape, dtype=self.dtype, device=dev)
+        self.cache_v = torch.zeros(shape, dtype=self.dtype, device=dev)
+        self.cache_index = 0
+
+    def clear_cache(self) -> None:
+        """Drop the contiguous cache (its memory goes with it)."""
+        self.cache_k = self.cache_v = None
+        self.cache_index = 0
+
     def forward(self, x, *, kv_mask=None, page_table=None, row_lens=None,
-                draw=None, site=(0, 0)):
+                draw=None, site=(0, 0), verify=False):
         batch, seq = x.shape[0], x.shape[1]
         dt = self.dtype
         q = dense(self.q, x, dt).reshape(batch, seq, self.num_heads,
@@ -253,17 +283,24 @@ class MultiHeadAttention(nn.Module):
             if kv_mask is not None:
                 raise ValueError("decode mode supports causal attention "
                                  "only, without masks")
-            if page_table is None or row_lens is None:
+            paged = self.paged_num_blocks > 0
+            if paged and (page_table is None or row_lens is None):
                 raise ValueError(
                     "paged decode needs the engine's page_table and row_lens"
                 )
-            # row b's tokens sit at absolute positions lens[b] + t
-            positions = row_lens[:, None].long() + torch.arange(
-                seq, device=q.device)
+            if verify and not paged:
+                raise ValueError("a verify chunk needs the paged pool "
+                                 "(paged_num_blocks > 0)")
+            # row b's tokens sit at absolute positions lens[b] + t (paged),
+            # or at cursor + t for every row (contiguous)
+            steps = torch.arange(seq, device=q.device)
+            positions = (row_lens[:, None].long() + steps if paged
+                         else (self.cache_index + steps)[None])
             if self.rope:
                 q = rope(q, positions, self.rope_theta)
                 k = rope(k, positions, self.rope_theta)
-            out = self._paged_step(q, k, v, page_table, positions)
+            out = (self._paged_step(q, k, v, page_table, positions, verify)
+                   if paged else self._decode_step(q, k, v, positions[0]))
         else:
             if self.rope:
                 q = rope(q, theta=self.rope_theta)
@@ -275,18 +312,44 @@ class MultiHeadAttention(nn.Module):
         out = dense(self.o, out.reshape(batch, seq, -1), dt)
         return dropout(out, self.dropout_rate, draw, site)
 
-    def _paged_step(self, q, k, v, table, positions):
+    def _decode_step(self, q, k, v, positions):
+        """Contiguous-cache attention: write this call's K/V at the cursor,
+        then attend the new queries (at ``positions`` = ``cursor +
+        arange(seq)``) against every cached key at a position ``<=`` their
+        own, through the plain attention (1..n-token queries)."""
+        if self.cache_k is None:
+            raise ValueError(
+                "the contiguous decode cache is not sized: call "
+                "init_cache(batch, length) first (generate() does)"
+            )
+        seq = q.shape[1]
+        idx = self.cache_index
+        cache_len = self.cache_k.shape[1]
+        if idx + seq > cache_len:
+            raise ValueError(f"{idx + seq} positions overflow the "
+                             f"contiguous cache of {cache_len}")
+        self.cache_k[:, idx:idx + seq] = k
+        self.cache_v[:, idx:idx + seq] = v
+        self.cache_index = idx + seq
+        key_pos = torch.arange(cache_len, device=q.device)
+        visible = key_pos[None, None, None, :] <= positions[:, None]
+        return dot_product_attention(q, self.cache_k, self.cache_v,
+                                     mask=visible, causal=False,
+                                     use_flash=False)
+
+    def _paged_step(self, q, k, v, table, positions, verify=False):
         """Paged-KV attention: ``seq > 1`` is a prefill of fresh rows
         (``row_lens == 0`` by engine contract, bucket-padded to a multiple
-        of the block size); ``seq == 1`` the one-token decode step.
+        of the block size), or with ``verify`` a decode chunk of ``seq``
+        tokens per row; ``seq == 1`` the one-token decode step.
 
-        Both write this call's K/V into the pool IN PLACE with
+        All write this call's K/V into the pool IN PLACE with
         ``index_put_`` (JAX returns a new pool instead); the pool is
         engine-owned state, so nothing else holds the old values.
         """
         batch, seq = q.shape[0], q.shape[1]
         bs, mb = self.paged_block_size, self.paged_max_blocks
-        if seq > 1:
+        if seq > 1 and not verify:
             # ---- prefill: K/V land in the rows' pool blocks via ONE batched
             # scatter over the (row, block) table entries; attention is plain
             # causal self-attention over this call's tokens (pad tokens sit
@@ -308,9 +371,14 @@ class MultiHeadAttention(nn.Module):
             self.pages_v[block_ids] = v.reshape(shape)
             return dot_product_attention(q, k, v, causal=True, use_flash=False)
 
-        # ---- decode: the token of row b sits at absolute position
-        # lens[b]; inactive rows' tables are all-scratch, so their writes
-        # pile up on block 0 and are never read by a live row
+        # ---- decode (seq == 1) / verify chunk (seq > 1): token s of row b
+        # sits at absolute position positions[b, s] = lens[b] + s. Inactive
+        # rows' tables are all-scratch, so their writes pile up on block 0
+        # and are never read by a live row; a verify window that runs past
+        # the table near the context limit writes to block 0 too (those
+        # queries' logits are discarded by the engine's acceptance loop).
+        # Attention: the kernel for seq == 1 on the card, the plain
+        # version for chunks (the JAX dispatcher's routing).
         blk_j = positions // bs
         block_idx = torch.where(
             blk_j < mb,
@@ -387,10 +455,10 @@ class TransformerBlock(nn.Module):
             ln.reset_parameters()
 
     def forward(self, x, *, kv_mask=None, page_table=None, row_lens=None,
-                draw=None):
+                draw=None, verify=False):
         dt = self.dtype
         kw = dict(kv_mask=kv_mask, page_table=page_table, row_lens=row_lens,
-                  draw=draw, site=(self.index + 1, 1))
+                  draw=draw, site=(self.index + 1, 1), verify=verify)
         mlp_kw = dict(draw=draw, site=(self.index + 1, 2))
         if self.prenorm:
             x = x + self.attn(layer_norm(self.ln1, x, dt), **kw)
@@ -433,6 +501,22 @@ class TransformerStack(nn.Module):
             layer.reset_parameters(generator)
 
     def forward(self, x, *, kv_mask=None, page_table=None, row_lens=None,
-                draw=None):
+                draw=None, verify=False):
         return run_blocks(self.layers, x, self.remat, kv_mask=kv_mask,
-                          page_table=page_table, row_lens=row_lens, draw=draw)
+                          page_table=page_table, row_lens=row_lens, draw=draw,
+                          verify=verify)
+
+
+def init_cache(model: nn.Module, batch: int, length: int) -> None:
+    """Size every attention layer's contiguous decode cache in ``model``
+    for ``batch`` rows of ``length`` positions, cursors at 0."""
+    for module in model.modules():
+        if isinstance(module, MultiHeadAttention):
+            module.init_cache(batch, length)
+
+
+def clear_cache(model: nn.Module) -> None:
+    """Drop every attention layer's contiguous decode cache in ``model``."""
+    for module in model.modules():
+        if isinstance(module, MultiHeadAttention):
+            module.clear_cache()

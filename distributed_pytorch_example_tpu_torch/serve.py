@@ -11,8 +11,12 @@ the JAX package's ``serve.py``; per-request detail lines go to stderr::
     python -m distributed_pytorch_example_tpu_torch.serve --requests 16 --rate 4
 
 Both families build ``mlp_dim = 2 * model_dim``, as the JAX ``serve.py``
-does. Not in this slice, and refused with a pointer to ROADMAP.md:
-``--mesh``, ``--auto-mesh``, ``--replicas > 1``, ``--spec-tokens`` and
+does. ``--spec-tokens K`` (K >= 2) turns on speculative decoding by
+self-speculation: the draft is a second decode module of the same
+geometry whose parameters are the target's own tensors (no second copy of
+the weights) over a pool of its own; exact-match acceptance keeps the
+streams those of plain decoding. Not in this slice, and refused with a
+pointer to ROADMAP.md: ``--mesh``, ``--auto-mesh``, ``--replicas > 1`` and
 ``--publish-dir``.
 """
 
@@ -86,15 +90,23 @@ def build_model(args):
 
 
 def build_engine(args, trace, model=None):
-    """The engine over ``model`` (default :func:`build_model`)."""
+    """The engine over ``model`` (default :func:`build_model`); with
+    ``--spec-tokens`` the target drafts for itself (self-speculation)."""
     from distributed_pytorch_example_tpu_torch.serving import InferenceEngine
+    from distributed_pytorch_example_tpu_torch.serving.engine import (
+        self_draft,
+    )
 
     if model is None:
         model = build_model(args)
+    spec = {}
+    if args.spec_tokens:
+        spec = dict(draft_model=self_draft(model),
+                    spec_tokens=args.spec_tokens)
     return InferenceEngine(
         model, num_slots=args.slots, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, trace=trace, mode=args.mode,
-        device=args.device,
+        device=args.device, **spec,
     )
 
 
@@ -119,6 +131,7 @@ def _config_dict(args):
         "top_p": args.top_p, "seed": args.seed, "device": args.device,
         **({"chaos": args.chaos} if args.chaos else {}),
         **({"sessions": args.sessions} if args.sessions else {}),
+        **({"spec_tokens": args.spec_tokens} if args.spec_tokens else {}),
     }
 
 
@@ -181,7 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--top-k", type=int, default=None)
     parser.add_argument("--top-p", type=float, default=None)
     parser.add_argument("--spec-tokens", type=int, default=0,
-                        help="speculative decoding window (not ported)")
+                        help="speculative decoding window K >= 2 (0 = "
+                        "off): the model drafts for itself "
+                        "(self-speculation), the verify step commits the "
+                        "exact-match prefix, so the output is that of "
+                        "non-speculative decode at any temperature")
     parser.add_argument("--mode", default="continuous",
                         choices=("continuous", "static"),
                         help="static = classic wave batching (admit only "
@@ -216,11 +233,12 @@ def main(argv=None) -> int:
         parser.error("--requests must be >= 1")
     if args.max_blocks * args.block_size > args.max_len:
         parser.error("--max-blocks * --block-size must be <= --max-len")
+    if args.spec_tokens and args.spec_tokens < 2:
+        parser.error("--spec-tokens must be 0 (off) or >= 2")
     for flag, asked in (
         ("--mesh", bool(args.mesh)),
         ("--auto-mesh", args.auto_mesh),
         ("--replicas > 1", args.replicas != 1),
-        ("--spec-tokens", bool(args.spec_tokens)),
         ("--publish-dir", bool(args.publish_dir)),
     ):
         if asked:
@@ -282,7 +300,10 @@ def main(argv=None) -> int:
         "tpot_p99_ms": m["tpot_ms"]["p99"],
         "queue_wait_p99_ms": m["queue_wait_ms"]["p99"],
         "decode_tokens_per_sec": round(m["decode_tokens_per_sec"], 2),
-        "spec_accept_rate": None,
+        "spec_accept_rate": (
+            round(m["spec_accept_rate"], 4)
+            if m["spec_accept_rate"] is not None else None
+        ),
         "slot_occupancy": round(m["slot_occupancy"], 4),
         "decode_steps": m["decode_steps"],
         "generated_tokens": m["generated_tokens"],

@@ -10,6 +10,20 @@ Two device steps serve the whole workload:
   tokens are discarded on the host. On the card its attention is the CUDA
   paged-decode kernel, launched once per layer.
 
+Speculative decoding (``spec_tokens=K`` and a ``draft_model``) swaps the
+decode boundary for two steps over the same fixed slot array:
+``_draft_propose_step`` (K greedy one-token steps of the draft over its
+own pool, each launching the paged-decode kernel once per layer) and
+``_verify_step`` (the target scoring the K-token window in one call: a
+verify chunk on the target's own pool, whose attention is the plain
+version, as JAX routes chunks). Acceptance is EXACT-MATCH: the target
+samples its own token at every window position with the position-seeded
+noise the one-token path uses, and a drafted token is committed only when
+it equals the target's draw, so the stream is the non-speculative one at
+any temperature and preemption restarts replay it. Rejected positions
+leave KV behind in both pools; it is never visible (attention masks by
+position) and the next boundary overwrites it.
+
 The paged pool lives in the model's attention modules
 (models/transformer.py ``_paged_step``); the engine builds the
 ``page_table`` / ``row_lens`` of every call from the scheduler's host
@@ -24,13 +38,14 @@ per-row argmax share no cross-row state. Telemetry: per-request
 queue/prefill/decode trace spans land in the Chrome trace.
 
 Not in this slice, and refused when asked for: a partitioner (sharded
-serving), speculative decoding, ``install_params`` (hot swap),
-``serve_loop`` (the fleet replica loop) and the static-audit program views.
+serving), ``install_params`` (hot swap), ``serve_loop`` (the fleet replica
+loop) and the static-audit program views.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import time
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -45,14 +60,17 @@ from distributed_pytorch_example_tpu_torch.serving.cache import (
     BlockAllocator,
     PagedCacheConfig,
 )
-from distributed_pytorch_example_tpu_torch.serving.sampling import sample_rows
+from distributed_pytorch_example_tpu_torch.serving.sampling import (
+    sample_rows,
+    sample_token_matrix,
+)
 from distributed_pytorch_example_tpu_torch.serving.scheduler import (
     Request,
     RequestState,
     Scheduler,
 )
 
-__all__ = ["EngineFetchTimeout", "InferenceEngine", "Request"]
+__all__ = ["EngineFetchTimeout", "InferenceEngine", "Request", "self_draft"]
 
 
 class EngineFetchTimeout(RuntimeError):
@@ -75,7 +93,7 @@ def _prefill_step(model, tokens, table, length, seed, poison, *,
                   temperature, top_k, top_p):
     """One bucket-padded prompt -> (first token, finite?) as device tensors."""
     lens = torch.zeros((1,), dtype=torch.int32, device=tokens.device)
-    logits = model(tokens, page_table=table, row_lens=lens)
+    logits = model(tokens, page_table=table, row_lens=lens, verify=False)
     # the last REAL position's logits, not the bucket end's
     row = logits[0, length - 1:length].float()  # (1, V)
     if poison:
@@ -100,6 +118,53 @@ def _decode_step(model, tokens, table, lens, seeds, positions, poison, *,
     return nxt, ok
 
 
+def _draft_propose_step(model, tokens, table, lens, *, steps):
+    """Greedily propose ``steps`` draft tokens per slot -> (slots, steps).
+
+    One-token decode calls against the DRAFT pool, step i at ``lens + i``,
+    so step i writes draft KV at position ``lens + i``. Proposals are
+    argmax whatever the engine's temperature: acceptance is an exact match
+    against the target's draw, so the draft's choice moves only the accept
+    rate, never the stream.
+
+    The caller passes ``steps`` = the whole window K although only K-1
+    proposals enter the verify window: the last step exists to WRITE
+    ``draft_{K-1}``'s KV at ``lens + K - 1``. Without it a fully accepted
+    boundary would leave a hole at that position in the draft pool, and
+    the next boundary's first proposal would attend garbage.
+    """
+    drafted = []
+    tok = tokens
+    for i in range(steps):
+        logits = model(tok[:, None], page_table=table, row_lens=lens + i)
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        drafted.append(tok)
+    return torch.stack(drafted, dim=1)
+
+
+def _verify_step(model, tokens, table, lens, seeds, positions, poison, *,
+                 temperature, top_k, top_p):
+    """Score a (slots, K) window [last committed, d_1 .. d_{K-1}] in one
+    verify chunk on the target's pool -> (target tokens (slots, K), finite
+    mask (slots,)). ``positions[b]`` is the absolute position of the first
+    token to sample (= row_lens + 1); window position i samples at
+    ``positions[b] + i``, as i sequential one-token steps would."""
+    logits = model(tokens, page_table=table, row_lens=lens, verify=True)
+    logits = logits.float()  # (slots, K, V)
+    logits = torch.where(poison[:, None, None], float("nan"), logits)
+    ok = torch.isfinite(logits).flatten(1).all(dim=1)
+    tgt = sample_token_matrix(logits, seeds, positions, temperature, top_k,
+                              top_p)
+    return tgt, ok
+
+
+def self_draft(model):
+    """A draft for self-speculation: a second decode module of ``model``'s
+    geometry whose parameters ARE ``model``'s (the same tensors, no second
+    copy of the weights) over a pool of its own."""
+    return copy.deepcopy(model, {id(p): p for p in model.parameters()})
+
+
 def _percentiles(samples: Sequence[float]) -> Dict[str, float]:
     if not samples:
         return {"p50": None, "p95": None, "p99": None}
@@ -118,6 +183,11 @@ class InferenceEngine:
     its kv heads, with RoPE at each row's ``row_lens``). The engine moves it to
     ``device`` — ``cuda`` unless the caller passes ``device="cpu"``; with
     no card that raises.
+
+    ``spec_tokens=K`` (K >= 2) with a ``draft_model`` of the same paged
+    geometry, built with ``decode=True``, turns on speculative decoding;
+    the draft keeps its own pool (``self_draft`` builds one over the
+    target's own weights).
 
     ``clock`` / ``sleep`` are injectable for virtual-clock tests; the
     open-loop ``run()`` honors each request's ``arrival`` timestamp
@@ -139,14 +209,13 @@ class InferenceEngine:
         sleep=time.sleep,
         mode: str = "continuous",
         fetch_timeout_s: Optional[float] = None,
+        draft_model=None,
         spec_tokens: int = 0,
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.device = resolve_device(device)
         if partitioner is not None:
             raise _not_in_slice("sharded serving (partitioner)")
-        if spec_tokens:
-            raise _not_in_slice("speculative decoding (spec_tokens > 0)")
         nb = int(getattr(model, "paged_num_blocks", 0))
         bs = int(getattr(model, "paged_block_size", 0))
         mb = int(getattr(model, "paged_max_blocks", 0))
@@ -157,6 +226,34 @@ class InferenceEngine:
                 "paged_max_blocks set"
             )
         self.model = model.to(self.device).eval()
+        # speculative decoding: the draft proposes spec_tokens - 1 tokens
+        # a boundary and the target verifies the window in one chunk. The
+        # draft has its own pool of the same geometry, so the scheduler's
+        # block tables address both.
+        self.spec_tokens = int(spec_tokens)
+        self.draft_model = None
+        if self.spec_tokens:
+            if self.spec_tokens < 2:
+                raise ValueError(
+                    f"spec_tokens must be >= 2 (got {self.spec_tokens}): "
+                    "1 drafted token is the non-speculative decode step"
+                )
+            if draft_model is None:
+                raise ValueError("spec_tokens > 0 needs draft_model")
+            if not getattr(draft_model, "decode", False):
+                raise ValueError("draft model must be built with decode=True")
+            for field in (
+                "paged_num_blocks", "paged_block_size", "paged_max_blocks"
+            ):
+                got = int(getattr(draft_model, field, 0))
+                want = int(getattr(model, field))
+                if got != want:
+                    raise ValueError(
+                        f"draft model {field}={got} != target {want}: the "
+                        "draft pool must share the target's paged geometry "
+                        "so one scheduler table addresses both"
+                    )
+            self.draft_model = draft_model.to(self.device).eval()
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
@@ -195,6 +292,8 @@ class InferenceEngine:
         self._slot_tokens = np.zeros((num_slots,), np.int64)
         self._decode_time_s = 0.0
         self._decode_tokens = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
 
     # -- out of this slice ------------------------------------------------
 
@@ -287,6 +386,19 @@ class InferenceEngine:
                 lambda: out.cpu().tolist(), f"serve prefill fetch ({req.rid})"
             )
         self._span(f"prefill:{req.rid}", t0)
+        if self.spec_tokens:
+            # the draft pool needs the prompt's KV too (same blocks, its
+            # own storage); the draft's logits are discarded: the TARGET's
+            # prefill token is the stream's first token
+            t0 = self._ts_us()
+            with torch.inference_mode():
+                self.draft_model(
+                    self._to_device(tokens), page_table=self._to_device(table),
+                    row_lens=torch.zeros((1,), dtype=torch.int32,
+                                         device=self.device),
+                    verify=False,
+                )
+            self._span(f"draft_prefill:{req.rid}", t0)
         now = self.clock()
         st.t_first = now
         st.token_times.append(now)
@@ -296,10 +408,20 @@ class InferenceEngine:
         return bool(ok)
 
     def _run_decode(self, sched: Scheduler) -> None:
-        """One fixed-slot decode boundary: one token per resident slot;
-        requests that finish (done or evicted with an error) leave their
-        slots here."""
+        """One fixed-slot decode boundary; requests that finish (done or
+        evicted with an error) leave their slots here. Takes the
+        speculative path when a draft model is configured, so ``run()``
+        and ``warmup()`` inherit speculation."""
         t_wall = self.clock()
+        if self.spec_tokens:
+            self._run_decode_spec(sched)
+        else:
+            self._run_decode_one(sched)
+        self._decode_time_s += max(self.clock() - t_wall, 0.0)
+
+    def _boundary_inputs(self, sched: Scheduler):
+        """The resident slots and the boundary's host arrays: page tables,
+        row lengths, each row's next sampled position and poison flags."""
         active = sched.active()
         ns = self.config.num_slots
         table = np.full(
@@ -315,6 +437,11 @@ class InferenceEngine:
             poison[slot] = chaos.poison_request(
                 st.request.rid, len(st.generated)
             )
+        return active, table, lens, positions, poison
+
+    def _run_decode_one(self, sched: Scheduler) -> None:
+        """One token per resident slot: the non-speculative decode step."""
+        active, table, lens, positions, poison = self._boundary_inputs(sched)
         t0 = self._ts_us()
         with torch.inference_mode():
             nxt, ok = _decode_step(
@@ -351,7 +478,81 @@ class InferenceEngine:
             ):
                 sched.finish(st, "done", now=now)
                 self._span_request(st)
-        self._decode_time_s += max(self.clock() - t_wall, 0.0)
+
+    def _run_decode_spec(self, sched: Scheduler) -> None:
+        """One speculative boundary: draft K-1 tokens, verify the K-token
+        window in one target chunk, commit the longest drafted prefix the
+        target reproduces plus the target's own token at the first
+        mismatch: up to K committed tokens a boundary.
+
+        Acceptance runs on the host against the TARGET's sampled window
+        (``tgt[i]`` is the token sequential decoding would have drawn at
+        position ``cached_len + 1 + i`` given the same prefix), so
+        committing ``tgt[:accept + 1]`` replays the sequential stream;
+        rejected drafts cost only the speculated compute.
+        """
+        active, table, lens, positions, poison = self._boundary_inputs(sched)
+        K = self.spec_tokens
+        table_t, lens_t = self._to_device(table), self._to_device(lens)
+        t0 = self._ts_us()
+        with torch.inference_mode():
+            drafted = _draft_propose_step(
+                self.draft_model, self._to_device(self._slot_tokens.copy()),
+                table_t, lens_t, steps=K,
+            )
+            drafted = self._fetch(
+                lambda: drafted.cpu().numpy(), "serve draft fetch"
+            )
+        self._span("draft_propose", t0)
+        # the K-th proposal exists only for its KV write (see
+        # _draft_propose_step); the verify window uses d_1 .. d_{K-1}
+        window = np.concatenate(
+            [self._slot_tokens[:, None], drafted[:, : K - 1]], axis=1
+        )  # (slots, K): [last committed, d_1 .. d_{K-1}]
+        t0 = self._ts_us()
+        with torch.inference_mode():
+            tgt, ok = _verify_step(
+                self.model, self._to_device(window), table_t, lens_t,
+                self._slot_seeds.tolist(), positions.tolist(),
+                self._to_device(poison), **self._static_kw(),
+            )
+            out = torch.cat([tgt, ok.long()[:, None]], dim=1)
+            out = self._fetch(
+                lambda: out.cpu().numpy(), "serve verify fetch"
+            )
+        tgt, ok = out[:, :K], out[:, K]
+        self._span("verify_step", t0)
+        now = self.clock()
+        for slot, st in active:
+            req = st.request
+            if not bool(ok[slot]):
+                sched.finish(
+                    st, "error", now=now,
+                    error="nonfinite logits at generated token "
+                          f"{len(st.generated)}",
+                )
+                self._span_request(st)
+                continue
+            accept = 0
+            while (
+                accept < K - 1
+                and int(window[slot, accept + 1]) == int(tgt[slot, accept])
+            ):
+                accept += 1
+            self._spec_proposed += K - 1
+            self._spec_accepted += accept
+            for tok in (int(t) for t in tgt[slot, : accept + 1]):
+                st.generated.append(tok)
+                st.token_times.append(now)
+                self._slot_tokens[slot] = tok
+                self._decode_tokens += 1
+                if (
+                    (req.eos_id is not None and tok == req.eos_id)
+                    or len(st.generated) >= req.max_new_tokens
+                ):
+                    sched.finish(st, "done", now=now)
+                    self._span_request(st)
+                    break
 
     def _span_request(self, st: RequestState) -> None:
         if self.trace is None:
@@ -411,9 +612,12 @@ class InferenceEngine:
 
     def _grow_or_preempt(self, sched: Scheduler) -> None:
         """Grow each resident row's table at a decode boundary, preempting
-        the youngest resident until the growth fits."""
+        the youngest resident until the growth fits. A speculative
+        boundary writes KV up to ``spec_tokens`` positions ahead, so the
+        window's blocks must exist before it runs."""
+        tokens = max(self.spec_tokens, 1)
         for _slot, st in list(sched.active()):
-            while st.status == "running" and not sched.grow(st):
+            while st.status == "running" and not sched.grow(st, tokens):
                 victim = sched.preempt_youngest()
                 if victim is None or victim is st:
                     break
@@ -481,12 +685,14 @@ class InferenceEngine:
     def _reset_decode_counters(self) -> None:
         self._decode_time_s = 0.0
         self._decode_tokens = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
 
     def decode_metrics(self) -> Dict[str, Optional[float]]:
         """Decode-side throughput since the last ``run()`` start: wall time
-        spent at decode boundaries and tokens committed there (prefill
-        tokens excluded). Speculation is not ported, so its accept rate is
-        None and its counters 0."""
+        spent at decode boundaries (speculative or not), tokens committed
+        there (prefill tokens excluded), and the drafted-token accept rate
+        (None when speculation is off) with its raw counters."""
         return {
             "decode_time_s": self._decode_time_s,
             "decode_tokens": self._decode_tokens,
@@ -494,9 +700,12 @@ class InferenceEngine:
                 self._decode_tokens / self._decode_time_s
                 if self._decode_time_s > 0 else 0.0
             ),
-            "spec_accept_rate": None,
-            "spec_proposed": 0,
-            "spec_accepted": 0,
+            "spec_accept_rate": (
+                self._spec_accepted / self._spec_proposed
+                if self._spec_proposed else None
+            ),
+            "spec_proposed": self._spec_proposed,
+            "spec_accepted": self._spec_accepted,
         }
 
     def _report(self, states, sched, elapsed, decode_steps, occupied_rows):

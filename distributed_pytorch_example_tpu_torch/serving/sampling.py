@@ -1,4 +1,4 @@
-"""Sampling math for the serving engine.
+"""Sampling math for the serving engine and ``train/generate.py``.
 
 ``truncate_logits`` is the JAX package's truncation (temperature / top-k /
 top-p) step for step, tie rule included: a top-k cut keeps every logit
@@ -13,6 +13,10 @@ request, position and logits only — never on which other rows share the
 batch — so preemption restarts and co-resident changes reproduce the
 same tokens. The noise comes from a CPU generator so the draw is the same
 whichever device computed the logits. ``temperature == 0`` is argmax.
+``sample_token_matrix`` draws a speculative window by the same contract,
+position by position; ``generate(rng_fold="position")`` draws a batch's
+noise at position ``p`` from one generator seeded as row 0's, so its row
+0 is the engine's draw for a request with that seed.
 """
 
 from __future__ import annotations
@@ -36,11 +40,18 @@ def row_seed(seed: int, position: int) -> int:
     return _splitmix64(_splitmix64(int(seed) & _MASK64) ^ int(position)) >> 1
 
 
+def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
+    """float32 Gumbel noise of ``shape`` from a CPU ``generator``, drawn
+    in row-major order: the first row of a (B, V) draw is the (V,) draw
+    of the same generator state."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return -torch.log(-torch.log(u))
+
+
 def gumbel_noise(seed: int, position: int, vocab: int) -> torch.Tensor:
     """(vocab,) float32 Gumbel noise for one row's draw, on the CPU."""
     gen = torch.Generator().manual_seed(row_seed(seed, position))
-    u = torch.rand(vocab, generator=gen, dtype=torch.float32)
-    return -torch.log(-torch.log(u))
+    return gumbel(gen, (vocab,))
 
 
 def truncate_logits(
@@ -87,5 +98,33 @@ def sample_rows(
     vocab = logits.shape[-1]
     noise = torch.stack([
         gumbel_noise(s, p, vocab) for s, p in zip(seeds, positions)
+    ]).to(logits.device, non_blocking=True)
+    return torch.argmax(logits + noise, dim=-1)
+
+
+def sample_token_matrix(
+    logits: torch.Tensor,
+    seeds: Sequence[int],
+    positions: Sequence[int],
+    temperature: float,
+    top_k: Optional[int],
+    top_p: Optional[float],
+) -> torch.Tensor:
+    """Sample a (B, S) token window from (B, S, V) float32 logits -> int64.
+
+    Token (b, i) is drawn as :func:`sample_rows` draws row ``b`` at
+    position ``positions[b] + i``: with the Gumbel noise of
+    ``(seeds[b], positions[b] + i)``. A speculative verify window thus
+    samples the tokens that S sequential one-token decode steps would
+    sample from the same logits, which is what makes speculation exact at
+    any temperature. The truncation runs once over the whole window.
+    """
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = truncate_logits(logits, temperature, top_k, top_p)
+    steps, vocab = logits.shape[1], logits.shape[-1]
+    noise = torch.stack([
+        torch.stack([gumbel_noise(s, p + i, vocab) for i in range(steps)])
+        for s, p in zip(seeds, positions)
     ]).to(logits.device, non_blocking=True)
     return torch.argmax(logits + noise, dim=-1)

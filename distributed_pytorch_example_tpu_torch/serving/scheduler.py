@@ -175,13 +175,17 @@ class Scheduler:
         st.blocks = blocks
         return slot
 
-    def grow(self, st: RequestState) -> bool:
-        """Ensure the block holding position ``cached_len`` exists before
-        the next decode write; allocate one when crossing a block
-        boundary. The target is clamped to the request's own ceiling.
+    def grow(self, st: RequestState, tokens: int = 1) -> bool:
+        """Ensure the blocks holding positions ``cached_len`` ..
+        ``cached_len + tokens - 1`` exist before the next decode write;
+        allocate blocks when crossing block boundaries. ``tokens > 1`` is
+        the speculative window (draft and verify write KV that far ahead).
+        The target is clamped to the request's own ceiling, so speculation
+        never allocates blocks the request cannot use: writes past the
+        ceiling land on the scratch block by the page-table contract.
         False = the pool is out of blocks (caller preempts)."""
         ceiling = len(st.request.prompt) + st.request.max_new_tokens
-        need = self.config.blocks_for(min(st.cached_len + 1, ceiling))
+        need = self.config.blocks_for(min(st.cached_len + tokens, ceiling))
         while len(st.blocks) < need:
             got = self.allocator.alloc(1)
             if got is None:

@@ -1,6 +1,7 @@
 """Training: tasks, optimizers, the data-parallel train/eval steps, the
-epoch loop, checkpoints and the CLI
-(``python -m distributed_pytorch_example_tpu_torch.train``)."""
+epoch loop, checkpoints, the CLI
+(``python -m distributed_pytorch_example_tpu_torch.train``) and
+``generate`` over a contiguous KV cache."""
 
 from distributed_pytorch_example_tpu_torch.robustness import (
     BadStepBudgetExceeded,
@@ -10,6 +11,7 @@ from distributed_pytorch_example_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from distributed_pytorch_example_tpu_torch.train.cli import main
+from distributed_pytorch_example_tpu_torch.train.generate import generate
 from distributed_pytorch_example_tpu_torch.train.loop import (
     PreemptionInterrupt,
     Trainer,
@@ -43,6 +45,7 @@ __all__ = [
     "Trainer",
     "build_eval_step",
     "build_train_step",
+    "generate",
     "load_checkpoint",
     "main",
     "make_optimizer",

@@ -35,6 +35,7 @@ from distributed_pytorch_example_tpu_torch.serving import (
     InferenceEngine,
     Request,
 )
+from distributed_pytorch_example_tpu_torch.serving.engine import self_draft
 from distributed_pytorch_example_tpu_torch.train import (
     CausalLMTask,
     TrainState,
@@ -256,6 +257,43 @@ def test_engine_decodes_through_the_kernel(card):
     for rid, r in cpu["results"].items():
         assert got["results"][rid]["status"] == "done"
         assert got["results"][rid]["tokens"] == r["tokens"], rid
+
+
+def test_speculative_engine_drafts_through_the_kernel(card):
+    """A small GPT-2 served greedily with self-speculation (K = 4) on the
+    card: every boundary's draft launches the kernel K times per layer and
+    the verify chunk none (it takes the plain version), and every token
+    is within chip_smoke's logit gap of a plain forward's argmax."""
+    kw = dict(vocab_size=97, max_len=64, model_dim=64, num_layers=3,
+              num_heads=4, mlp_dim=128, seed=3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = GPT2(**kw, decode=True, paged_num_blocks=24, paged_block_size=4,
+                 paged_max_blocks=8, device="cuda")
+    rng = np.random.default_rng(5)
+    reqs = [
+        Request(rid=f"r{i}", prompt=[int(t) for t in rng.integers(0, 97, n)],
+                max_new_tokens=10, seed=i)
+        for i, n in enumerate((9, 4, 12))
+    ]
+    engine = InferenceEngine(model, num_slots=2, device="cuda",
+                             temperature=0.0, draft_model=self_draft(model),
+                             spec_tokens=4)
+    paged_flash_decode.launches = 0
+    got = engine.run(reqs)
+    m = got["metrics"]
+    assert m["decode_steps"] > 0 and m["spec_accept_rate"] is not None
+    assert paged_flash_decode.launches == m["decode_steps"] * 4 * 3
+    plain = GPT2(**kw, device="cuda")
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        for req in reqs:
+            tokens = got["results"][req.rid]["tokens"]
+            assert got["results"][req.rid]["status"] == "done"
+            seq = torch.tensor([list(req.prompt) + tokens], device="cuda")
+            plen = len(req.prompt)
+            steps = plain(seq)[0, plen - 1:plen - 1 + len(tokens)]
+            chosen = steps.gather(1, seq[0, plen:, None])[:, 0]
+            assert (steps.max(dim=1).values - chosen).max().item() <= 1e-3
 
 
 # ---------------------------------------------------------------------------

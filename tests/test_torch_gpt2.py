@@ -110,7 +110,11 @@ def test_refused_options_raise():
         GPT2(**KW, moe_experts=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPT2(**KW, pipe_axis="pipe", device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        GPT2(**KW, decode=True, device="cpu")
+    # the contiguous decode cache is ported: the model builds, with no
+    # buffer beyond the training model's state
+    decode = GPT2(**KW, decode=True, device="cpu")
+    assert decode.state_dict().keys() == GPT2(**KW, device="cpu").state_dict().keys()
+    with pytest.raises(ValueError, match="init_cache"):
+        decode(torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(ValueError, match="decode"):
         GPT2(**KW, **PAGED, device="cpu")

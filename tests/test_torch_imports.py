@@ -57,6 +57,10 @@ def test_port_and_chip_smoke_import_no_jax():
               ROOT / "scripts" / "k3_device_time.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
+    # the decode side too: generate() and the speculative engine
+    package = pathlib.Path(port.__file__).parent
+    assert {package / "train" / "generate.py",
+            package / "serving" / "engine.py"} <= set(files)
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -107,7 +111,8 @@ def test_entry_points_without_cuda_raise(monkeypatch):
 
 def test_engine_refuses_out_of_slice_options():
     model = GPT2(**KW, decode=True, **PAGED, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # speculation is ported: without a draft it is refused as in JAX
+    with pytest.raises(ValueError, match="draft_model"):
         InferenceEngine(model, device="cpu", spec_tokens=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(model, device="cpu", partitioner=object())
@@ -118,7 +123,7 @@ def test_engine_refuses_out_of_slice_options():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(SystemExit):
-        serve_main(["--spec-tokens", "4", "--device", "cpu"])
+        serve_main(["--spec-tokens", "1", "--device", "cpu"])
 
 
 def test_train_cli_refuses_flags_outside_the_slice():
