@@ -171,6 +171,7 @@ its numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import math
@@ -1207,11 +1208,13 @@ def reset_counts():
         kernel.launches = 0
 
 
-def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None):
+def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None,
+            record=None, **trainer_kw):
     """One epoch of ``Trainer.fit`` on the card, Adam at lr 1e-3, over the
     first ``steps`` batches (default all); returns (losses, step ms,
     history, peak bytes, the first step's gradients by name on the
-    CPU)."""
+    CPU). ``record`` (a list) gets every step's metrics; ``trainer_kw``
+    goes to the Trainer."""
     from distributed_pytorch_example_tpu_torch.data import DeviceLoader
     from distributed_pytorch_example_tpu_torch.train import (
         Trainer,
@@ -1220,8 +1223,11 @@ def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None):
 
     trainer = Trainer(model, task,
                       make_optimizer(model.parameters(), "adam", 1e-3),
-                      log_every=5)
+                      log_every=5, **trainer_kw)
     step_fn, losses, events, first_grads = trainer.train_step, [], [], {}
+    # the peak after every step: the Trainer's cost record of its first
+    # train and eval step resets the card's peak counter before each
+    peaks = []
 
     def timed(state, batch):
         start = torch.cuda.Event(enable_timing=True)
@@ -1229,6 +1235,7 @@ def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None):
         start.record()
         metrics = step_fn(state, batch)
         end.record()
+        peaks.append(torch.cuda.max_memory_allocated())
         if not events:  # copied to the host: the peak stays the run's own
             first_grads.update(
                 (name, p.grad.detach().to("cpu", copy=True))
@@ -1236,6 +1243,8 @@ def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None):
             )
         losses.append(metrics["loss"])
         events.append((start, end))
+        if record is not None:
+            record.append(metrics)
         return metrics
 
     trainer.train_step = timed
@@ -1248,14 +1257,15 @@ def fit_run(torch, model, task, train_ds, val_ds, batch, steps=None):
         epochs=1,
     )
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks + [torch.cuda.max_memory_allocated()])
     step_ms = [s.elapsed_time(e) for s, e in events]
     del trainer, model
+    gc.collect()  # a Trainer's cycles hold its tensors until collected
     torch.cuda.empty_cache()
     return [float(x) for x in losses], step_ms, history, peak, first_grads
 
 
-def train_run(torch, use_flash):
+def train_run(torch, use_flash, **fit_kw):
     """GPT-2 124M through Trainer.fit (see :func:`fit_run`)."""
     from distributed_pytorch_example_tpu_torch.data import (
         SyntheticTokenDataset,
@@ -1269,7 +1279,7 @@ def train_run(torch, use_flash):
                                      seq_len=TRAIN_SEQ, seed=0)
     val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
     return fit_run(torch, model, CausalLMTask(), train_ds, val_ds,
-                   TRAIN_BATCH)
+                   TRAIN_BATCH, **fit_kw)
 
 
 def gradient_gaps(grads, plain_grads):
@@ -1317,8 +1327,9 @@ def train(torch):
                  f"tokens/s); epoch {history[0]['samples_per_sec']:.1f} "
                  f"samples/s; peak memory {peak / 2**30:.2f} GiB; K1 launches "
                  f"fwd {fwd} bwd {bwd}")
-    plain, plain_ms, _, plain_peak, plain_grads = train_run(torch,
-                                                            use_flash=False)
+    plain_metrics = []
+    plain, plain_ms, _, plain_peak, plain_grads = train_run(
+        torch, use_flash=False, record=plain_metrics)
     worst = max(abs(a - b) for a, b in zip(losses, plain))
     check(worst <= LOSS_TOL,
           f"train: flash vs plain attention losses differ by {worst:.3e} > "
@@ -1344,7 +1355,11 @@ def train(torch):
                  f"{worst:.3e} (tol {LOSS_TOL}: both bf16, attention rounds "
                  f"differently); median step {plain_median:.2f} ms; peak "
                  f"memory {plain_peak / 2**30:.2f} GiB")
-    return fwd, bwd, losses, grads
+    # what phase 15 holds its telemetry run to
+    phase6 = {"median_ms": median,
+              "plain_grad_norms": [float(m["grad_norm"])
+                                   for m in plain_metrics]}
+    return fwd, bwd, losses, grads, phase6
 
 
 def train_cli():
@@ -2781,21 +2796,23 @@ def llama_cli():
                  f"{tail}")
 
 
-def llama_lamb_batches(torch):
-    """The ZeRO-1 lamb run's global batches: 16 x 1024 tokens each."""
+def llama_lamb_batches(torch, steps=LLAMA_ZERO1_STEPS):
+    """The ZeRO-1 lamb (adafactor) run's global batches: 16 x 1024 tokens
+    each."""
     from distributed_pytorch_example_tpu_torch.data import (
         SyntheticTokenDataset,
     )
 
-    ds = SyntheticTokenDataset(LLAMA_ZERO1_STEPS * TRAIN_BATCH,
+    ds = SyntheticTokenDataset(steps * TRAIN_BATCH,
                                seq_len=TRAIN_SEQ, vocab_size=LLAMA_VOCAB,
                                seed=0)
     tokens = torch.from_numpy(ds.arrays["tokens"]).long()
-    return tokens.reshape(LLAMA_ZERO1_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    return tokens.reshape(steps, TRAIN_BATCH, TRAIN_SEQ)
 
 
-def llama_lamb_state(torch, partitioner=None):
-    """LLaMA at depth 2, bf16, fused loss, lamb at lr 1e-3, and its step."""
+def llama_lamb_state(torch, partitioner=None, optimizer="lamb"):
+    """LLaMA at depth 2, bf16, fused loss, lamb (or ``optimizer``) at lr
+    1e-3, and its step."""
     from distributed_pytorch_example_tpu_torch.models import Llama
     from distributed_pytorch_example_tpu_torch.train import (
         CausalLMTask,
@@ -2807,7 +2824,7 @@ def llama_lamb_state(torch, partitioner=None):
     model = Llama(num_layers=LLAMA_ZERO1_LAYERS, dtype=torch.bfloat16,
                   logits_mode="hidden", device="cuda", seed=0)
     state = TrainState(step=0, model=model,
-                       optimizer=make_optimizer(model, "lamb", 1e-3))
+                       optimizer=make_optimizer(model, optimizer, 1e-3))
     return state, build_train_step(CausalLMTask(), partitioner=partitioner)
 
 
@@ -3800,6 +3817,458 @@ def decode(torch, serve_runs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. telemetry: graft-scope through Trainer.fit, the profiler, overlap
+#     accounting at world 2, and adafactor under ZeRO-1
+# ---------------------------------------------------------------------------
+
+# the telemetry run's per-N-step records and the clock's fence cadence
+TELEMETRY_EVERY, TELEMETRY_SAMPLE = 2, 2
+# the FLOP count against the analytic count under the same rule
+FLOPS_TOL = 0.02
+# the ZeRO-1 runs profiled under measure_overlap, after one warm-up step
+OVERLAP_STEPS = 3
+# adafactor under ZeRO-1: LLaMA's width at depth 2, steps
+ADAFACTOR_ZERO1_STEPS = 3
+
+
+def analytic_lm_flops(model, batch, seq, layers, heads, head_dim,
+                      model_dim, vocab):
+    """The FLOP count's rule on paper: 6 N T over the weights the matmuls
+    use (the 2-D parameters; the tied embedding is the head), plus 2 T D V
+    for the chunked loss's logits recompute, plus K1's formula (causal
+    pairs, the forward's two products and the backward's recompute and
+    four, 2 FLOPs a product element)."""
+    tokens = batch * seq
+    n = sum(p.numel() for p in model.parameters() if p.dim() == 2)
+    pairs = batch * heads * seq * (seq + 1) // 2
+    return (6 * n * tokens + 2 * tokens * model_dim * vocab
+            + layers * 7 * 2 * head_dim * pairs)
+
+
+def telemetry_fit(torch, smi_line, phase6):
+    """(a) GPT-2 124M through Trainer.fit with per-N-step telemetry
+    records; returns K1's launches."""
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from distributed_pytorch_example_tpu_torch.telemetry import (
+        TelemetryConfig,
+    )
+    from distributed_pytorch_example_tpu_torch.train import CausalLMTask
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        metrics_file = os.path.join(tmp, "metrics.jsonl")
+        model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                     device="cuda", seed=0)
+        analytic = analytic_lm_flops(model, TRAIN_BATCH, TRAIN_SEQ, LAYERS,
+                                     HEADS, HEAD_DIM, HEADS * HEAD_DIM,
+                                     50257)
+        train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
+                                         seq_len=TRAIN_SEQ, seed=0)
+        val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
+        reset_counts()
+        losses, step_ms, _, _, _ = fit_run(
+            torch, model, CausalLMTask(), train_ds, val_ds, TRAIN_BATCH,
+            telemetry=TelemetryConfig(every=TELEMETRY_EVERY,
+                                      sample_every=TELEMETRY_SAMPLE),
+            metrics_file=metrics_file)
+        fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+        with open(metrics_file) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        with open(os.path.join(tmp, "trace_events.json")) as f:
+            spans = {e["name"] for e in json.load(f) if e.get("ph") == "X"}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(fwd == LAYERS * (TRAIN_STEPS + 1) and bwd == LAYERS * TRAIN_STEPS,
+          f"telemetry: K1 launches fwd {fwd} bwd {bwd}, want {LAYERS} x "
+          f"{TRAIN_STEPS + 1} and {LAYERS} x {TRAIN_STEPS} (phase 6's)")
+    records = [r for r in lines if "event" not in r and "epoch" not in r]
+    check([r["step"] for r in records]
+          == list(range(TELEMETRY_EVERY, TRAIN_STEPS + 1, TELEMETRY_EVERY)),
+          f"telemetry: per-N-step records at {[r['step'] for r in records]}")
+    for r in records:
+        check(r.get("flops_per_step_per_device") is not None
+              and r.get("hbm_peak_bytes") is not None
+              and math.isfinite(r.get("grad_norm", math.nan))
+              and math.isfinite(r.get("param_norm", math.nan))
+              and r.get("nonfinite_grads") == 0,
+              f"telemetry: record at step {r['step']}: {r}")
+        # the clock anchors at step 1 and takes its first sample
+        # TELEMETRY_SAMPLE steps later (JAX's contract): records before
+        # that carry no step time yet
+        if r["step"] >= 1 + TELEMETRY_SAMPLE:
+            mfu = r.get("mfu_analytic")
+            check(r.get("step_time_ms") is not None and mfu is not None
+                  and 0 < mfu <= 1,
+                  f"telemetry: step time / mfu_analytic at step "
+                  f"{r['step']}: {r.get('step_time_ms')} / {mfu}")
+    flops = records[0]["flops_per_step_per_device"]
+    gap = abs(flops - analytic) / analytic
+    check(gap <= FLOPS_TOL,
+          f"telemetry: flops_per_step_per_device {flops:.4e} vs analytic "
+          f"{analytic:.4e}: {gap:.3%} > {FLOPS_TOL:.0%}")
+    plain = phase6["plain_grad_norms"][1]
+    got = records[0]["grad_norm"]
+    norm_gap = abs(got - plain) / plain
+    check(norm_gap <= GRAD_TOL,
+          f"telemetry: step-2 grad_norm {got} vs plain attention's {plain}"
+          f": {norm_gap:.3e} > {GRAD_TOL}")
+    check({"step", "data_load", "h2d", "eval"} <= spans,
+          f"telemetry: trace_events.json spans {sorted(spans)}")
+    timed = [r for r in records if r.get("step_time_ms") is not None]
+    clock_ms = sorted(r["step_time_ms"] for r in timed)
+    mfus = [round(r["mfu_analytic"], 4) for r in timed]
+    say("telemetry", f"(a) GPT-2 124M bf16 {TRAIN_BATCH} x {TRAIN_SEQ}, "
+                     f"{TRAIN_STEPS} steps through Trainer.fit with records "
+                     f"every {TELEMETRY_EVERY} steps: flops_per_step_per_"
+                     f"device {flops:.4e} (analytic {analytic:.4e}: 6 N T + "
+                     f"2 T D V + K1's causal formula; gap {gap:.3%}, tol "
+                     f"{FLOPS_TOL:.0%}); hbm_peak_bytes "
+                     f"{records[0]['hbm_peak_bytes']}; step_time_ms "
+                     f"(the clock) {[round(x, 2) for x in clock_ms]} against "
+                     f"phase 6's median {phase6['median_ms']:.2f} ms and this"
+                     f" run's event-timed median of steps 3+ "
+                     f"{sorted(step_ms[2:])[len(step_ms[2:]) // 2]:.2f} ms; "
+                     f"mfu_analytic {mfus}; step-2 grad_norm {got:.6f} vs "
+                     f"plain attention's {plain:.6f} (gap {norm_gap:.3e}, tol"
+                     f" {GRAD_TOL}); param_norm {records[-1]['param_norm']:.4f}"
+                     f"; K1 fwd {fwd} bwd {bwd}; spans {sorted(spans)}; on "
+                     f"{smi_line}")
+    return fwd, bwd
+
+
+def telemetry_cli():
+    """(b) The training CLI on GPT-2 with the profiler over steps [2, 4)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        prof = os.path.join(tmp, "prof")
+        cmd = [sys.executable, "-m",
+               "distributed_pytorch_example_tpu_torch.train", "--model",
+               "gpt2", "--dataset", "synthetic-tokens", "--seq-len", "1024",
+               "--dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH),
+               "--epochs", "1", "--num-samples", str(5 * TRAIN_BATCH),
+               "--checkpoint-dir", "", "--profile-dir", prof,
+               "--profile-steps", "2,4"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        log = proc.stdout + proc.stderr
+        check(proc.returncode == 0 and "Training completed" in log,
+              f"telemetry CLI exit {proc.returncode}: {log[-3000:]}")
+        check("Profiler trace started" in log
+              and "Profiler trace written" in log,
+              f"telemetry CLI: no profiler log lines: {log[-3000:]}")
+        files = sorted(os.listdir(prof))
+        check(files == ["trace_steps_2_4.json"],
+              f"telemetry CLI: profile dir holds {files}")
+        path = os.path.join(prof, files[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(name in e.get("name", "") for e in kernels)
+             for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+                          "flash_dkv_bf16_kernel")}
+    check(all(found.values()),
+          f"telemetry CLI: CUDA kernel events in the trace {found} "
+          f"({len(kernels)} kernel events)")
+    say("telemetry", f"(b) {' '.join(cmd[1:])} in "
+                     f"{time.perf_counter() - t0:.1f} s: trace {files[0]} "
+                     f"({size} bytes, {len(kernels)} CUDA kernel events; K1 "
+                     f"kernels {found})")
+
+
+def telemetry_worker(ckpt_dir: str) -> int:
+    """One rank of (c) and (d) (started by :func:`telemetry_pair` with
+    REPLICAS / PROCESS_ID / MASTER_ADDR / MASTER_PORT set); prints one
+    ``chip_smoke_telemetry`` JSON line."""
+    import torch
+
+    from distributed_pytorch_example_tpu_torch.data import (
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_reduce_scatter,
+    )
+    from distributed_pytorch_example_tpu_torch.parallel import (
+        WireConfig,
+        data_parallel,
+    )
+    from distributed_pytorch_example_tpu_torch.parallel.wire import (
+        DEFAULT_BUCKET_BYTES,
+        _unscatter,
+    )
+    from distributed_pytorch_example_tpu_torch.runtime import distributed
+    from distributed_pytorch_example_tpu_torch.telemetry import (
+        exchange_step_times,
+        measure_overlap,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        TrainState,
+        build_train_step,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train.checkpoint import (
+        LATEST_NAME,
+        save_checkpoint,
+    )
+    from distributed_pytorch_example_tpu_torch.train.optimizers import (
+        Adafactor,
+    )
+
+    distributed.initialize(device="cuda")
+    rank, world = distributed.process_index(), distributed.process_count()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    per = TRAIN_BATCH // world
+    out = {"rank": rank, "world": world, "overlap": {}}
+    tokens = torch.from_numpy(SyntheticTokenDataset(
+        (OVERLAP_STEPS + 1) * TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        seed=0).arrays["tokens"]).long().reshape(
+            OVERLAP_STEPS + 1, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{"tokens": t[rank * per:(rank + 1) * per].to("cuda")}
+               for t in tokens]
+    # (c) phase 8's runs (i) and (ii), profiled
+    for run, cfg in ZERO1_RUNS.items():
+        model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                     device="cuda", seed=0)
+        part = data_parallel(world, dp_shard_opt_state=cfg["zero1"],
+                             wire=WireConfig(
+                                 compress=cfg["wire"],
+                                 param_gather=cfg["param_gather"],
+                                 bucket_bytes=DEFAULT_BUCKET_BYTES))
+        state = TrainState(step=0, model=model,
+                           optimizer=make_optimizer(model.parameters(),
+                                                    "adam", 1e-3))
+        step = build_train_step(CausalLMTask(), partitioner=part)
+        float(step(state, batches[0])["loss"])  # warm-up
+
+        def run_steps(n, step=step, state=state):
+            for batch in batches[1:1 + n]:
+                metrics = step(state, batch)
+            float(metrics["loss"])
+
+        ring_all_gather.launches = ring_reduce_scatter.launches = 0
+        trace_dir = tempfile.mkdtemp(prefix=f"chip_smoke_overlap_{rank}_")
+        try:
+            got = measure_overlap(run_steps, trace_dir, steps=OVERLAP_STEPS,
+                                  device="cuda")
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        check(got is not None, f"telemetry (c) {run} rank {rank}: the "
+                               "trace holds no CUDA kernel")
+        got["k3a"] = ring_all_gather.launches
+        got["k3b"] = ring_reduce_scatter.launches
+        got["exchange"] = exchange_step_times(got["wall_us_per_step"] / 1e3)
+        out["overlap"][run] = got
+        del model, state, step
+        torch.cuda.empty_cache()
+    # (d) adafactor under ZeRO-1, LLaMA's width at depth 2
+    part = data_parallel(world, dp_shard_opt_state=True, wire=WireConfig(
+        bucket_bytes=DEFAULT_BUCKET_BYTES))
+    state, step = llama_lamb_state(torch, part, optimizer="adafactor")
+    update = step.sharded(state)
+    ref = [leaf.to_jax(p).detach().clone().requires_grad_()
+           for leaf, p in zip(update.leaves, update.params)]
+    ref_opt = Adafactor(ref, lr=1e-3)
+    losses, tile_gap = [], 0.0
+    for tokens in llama_lamb_batches(torch, ADAFACTOR_ZERO1_STEPS):
+        local = {"tokens": tokens[rank * per:(rank + 1) * per].to("cuda")}
+        losses.append(float(step(state, local)["loss"]))
+        # adafactor on whole leaves, fed the same synced gradients
+        for i, (leaf, p, tile) in enumerate(zip(
+                update.leaves, update.params, update.tiles)):
+            if tile is None:
+                ref[i].grad = leaf.to_jax(p.grad).float()
+            else:
+                rows = distributed.all_gather_tiled(
+                    tile.grad.reshape(1, -1))
+                ref[i].grad = _unscatter(rows, update.dims[i],
+                                         update.chunk_shapes[i])
+        starts = [r.detach().clone() for r in ref]
+        ref_opt.step()
+        for leaf, p, r, start in zip(update.leaves, update.params, ref,
+                                     starts):
+            want = r.detach() - start
+            got_u = leaf.to_jax(p).detach().float() - start
+            tile_gap = max(tile_gap, ((got_u - want).norm()
+                                      / want.norm().clamp_min(1e-30)).item())
+            # hold the next step to the same starting point
+            r.data.copy_(leaf.to_jax(p).detach())
+    save_checkpoint(os.path.join(ckpt_dir, LATEST_NAME), state, 1,
+                    losses[-1], {}, sharded=True, layout=step.layout(state))
+    distributed.barrier()
+    out["adafactor"] = {
+        "losses": losses, "tile_gap": tile_gap,
+        "zero1_leaves": sum(d is not None for d in update.dims),
+        "factored_tiles": len(state.optimizer.optimizer.tiles),
+        "params_sha256": params_digest(state.model),
+    }
+    print("chip_smoke_telemetry " + json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def telemetry_pair(torch, smi_line):
+    """(c) and (d) in one pair of processes sharing the card; returns rank
+    0's K3a and K3b launches in (c)'s profiled windows."""
+    from distributed_pytorch_example_tpu_torch.models import Llama
+    from distributed_pytorch_example_tpu_torch.train import (
+        TrainState,
+        load_checkpoint,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train.checkpoint import (
+        LATEST_NAME,
+    )
+
+    state, step = llama_lamb_state(torch, optimizer="adafactor")
+    ref_losses = [float(step(state, {"tokens": t.to("cuda")})["loss"])
+                  for t in llama_lamb_batches(torch, ADAFACTOR_ZERO1_STEPS)]
+    del state, step
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_adafactor_")
+    try:
+        port = free_port()
+        procs = []
+        for rank in range(ZERO1_WORLD):
+            env = {**os.environ, "REPLICAS": str(ZERO1_WORLD),
+                   "PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--telemetry-worker", ckpt_dir],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        t0 = time.perf_counter()
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=600)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lines = {}
+        for rank, (proc, out) in enumerate(zip(procs, outs)):
+            found = [line for line in out.splitlines()
+                     if line.startswith("chip_smoke_telemetry ")]
+            check(proc.returncode == 0 and found,
+                  f"telemetry pair: rank {rank} exit {proc.returncode}: "
+                  f"{out[-3000:]}")
+            lines[rank] = json.loads(found[-1].split(" ", 1)[1])
+        say("telemetry", f"(c)+(d): {ZERO1_WORLD} processes on the card in "
+                         f"{time.perf_counter() - t0:.1f} s")
+        for rank, r in lines.items():
+            for run, o in r["overlap"].items():
+                check(o.get("collective_us_per_step", 0) > 0,
+                      f"telemetry (c) {run} rank {rank}: no collective "
+                      f"device time (a trace without CUDA activity?): {o}")
+                frac = o["overlap_frac"]
+                check(frac is not None and 0 <= frac <= 1,
+                      f"telemetry (c) {run} rank {rank}: overlap_frac {frac}")
+                scopes = o["by_scope"]
+                if run == "zero1":
+                    k3b = scopes.get("ring_reduce_scatter", 0) + sum(
+                        v for k, v in scopes.items()
+                        if k.startswith("wire_bucket"))
+                    check(o["k3b"] > 0 and k3b > 0,
+                          f"telemetry (c) {run} rank {rank}: K3b launches "
+                          f"{o['k3b']}, by_scope {scopes}")
+                else:
+                    check(o["k3a"] > 0
+                          and scopes.get("ring_all_gather", 0) > 0,
+                          f"telemetry (c) {run} rank {rank}: K3a launches "
+                          f"{o['k3a']}, by_scope {scopes}")
+                ex = o["exchange"]
+                check(len(ex.get("step_time_ms_per_host", ())) == ZERO1_WORLD
+                      and "step_time_skew" in ex,
+                      f"telemetry (c) {run} rank {rank}: exchange {ex}")
+                say("telemetry", f"(c) {run} rank {rank}: {OVERLAP_STEPS} "
+                                 f"profiled steps, wall "
+                                 f"{o['wall_us_per_step'] / 1e3:.2f} ms a "
+                                 f"step, collective "
+                                 f"{o['collective_us_per_step'] / 1e3:.2f} "
+                                 f"ms, compute "
+                                 f"{o['compute_us_per_step'] / 1e3:.2f} ms, "
+                                 f"overlap_frac {frac:.4f}; by_scope (ms a "
+                                 f"step) "
+                                 f"{ {k: round(v / 1e3, 3) for k, v in sorted(scopes.items())} }"
+                                 f"; K3a {o['k3a']} K3b {o['k3b']} launches;"
+                                 f" per-host step ms "
+                                 f"{ex['step_time_ms_per_host']}, skew "
+                                 f"{ex['step_time_skew']}; on {smi_line}")
+            a = r["adafactor"]
+            gap = max(abs(x - y) for x, y in zip(a["losses"], ref_losses))
+            check(gap <= LOSS_TOL,
+                  f"telemetry (d) rank {rank}: adafactor ZeRO-1 losses "
+                  f"{a['losses']} vs one process {ref_losses}")
+            check(a["tile_gap"] <= LAMB_TILE_TOL,
+                  f"telemetry (d) rank {rank}: the ZeRO-1 update is "
+                  f"{a['tile_gap']:.3e} off adafactor on whole leaves > "
+                  f"{LAMB_TILE_TOL}")
+            check(a["zero1_leaves"] > 0 and a["factored_tiles"] > 0,
+                  f"telemetry (d) rank {rank}: {a}")
+            say("telemetry", f"(d) adafactor under ZeRO-1, LLaMA width 768 "
+                             f"depth {LLAMA_ZERO1_LAYERS}, rank {rank}: "
+                             f"losses {[round(x, 4) for x in a['losses']]} "
+                             f"(one process "
+                             f"{[round(x, 4) for x in ref_losses]}, gap "
+                             f"{gap:.3e}, tol {LOSS_TOL}); updates against "
+                             f"adafactor on whole leaves fed the same "
+                             f"synced gradients, worst "
+                             f"||u - u_ref|| / ||u_ref|| {a['tile_gap']:.3e}"
+                             f" (tol {LAMB_TILE_TOL}); {a['zero1_leaves']} "
+                             f"ZeRO-1 leaves")
+        # the world-2 sharded checkpoint in one process
+        model = Llama(num_layers=LLAMA_ZERO1_LAYERS, dtype=torch.bfloat16,
+                      logits_mode="hidden", device="cuda", seed=3)
+        state = TrainState(step=0, model=model,
+                           optimizer=make_optimizer(model, "adafactor", 1e-3))
+        load_checkpoint(os.path.join(ckpt_dir, LATEST_NAME), state)
+        digest = params_digest(model)
+        ranks = {rank: r["adafactor"]["params_sha256"]
+                 for rank, r in lines.items()}
+        check(all(d == digest for d in ranks.values())
+              and state.step == ADAFACTOR_ZERO1_STEPS,
+              f"telemetry (d): the world-2 sharded checkpoint loaded at "
+              f"world 1 ({digest[:16]}, step {state.step}) differs from the"
+              f" ranks' ({ranks})")
+        say("telemetry", f"(d) the world-2 sharded adafactor checkpoint "
+                         f"loaded in one process: parameters equal both "
+                         f"ranks' bit for bit (sha256 {digest[:16]}), step "
+                         f"{state.step}")
+        del state, model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return (sum(o["k3a"] for o in lines[0]["overlap"].values()),
+            sum(o["k3b"] for o in lines[0]["overlap"].values()))
+
+
+def telemetry(torch, smi_line, phase6):
+    """Phase 15; returns K1's launches in (a) and rank 0's K3 launches in
+    (c)'s profiled windows."""
+    t0 = time.perf_counter()
+    fwd, bwd = telemetry_fit(torch, smi_line, phase6)
+    telemetry_cli()
+    k3a, k3b = telemetry_pair(torch, smi_line)
+    say("telemetry", f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return fwd, bwd, k3a, k3b
+
+
 def free_port():
     import socket
 
@@ -3835,7 +4304,8 @@ def main() -> int:
         phase = "cli"
         cli()
         phase = "train"
-        k1_fwd["launches"], k1_bwd["launches"], losses, grads = train(torch)
+        (k1_fwd["launches"], k1_bwd["launches"], losses, grads,
+         phase6) = train(torch)
         phase = "train-cli"
         train_cli()
         phase = "zero1"
@@ -3861,6 +4331,14 @@ def main() -> int:
         k2["decode"] = {"launches": decode(torch, serve_runs),
                         "run": "phase 14 (a)-(c): the drafts' one-token "
                                "steps"}
+        phase = "telemetry"
+        fwd, bwd, k3a_n, k3b_n = telemetry(torch, smi_line, phase6)
+        k1_fwd["telemetry"] = {"launches": fwd, "run": "phase 15 (a)"}
+        k1_bwd["telemetry"] = {"launches": bwd, "run": "phase 15 (a)"}
+        for entry, n in ((k3a, k3a_n), (k3b, k3b_n)):
+            entry["telemetry"] = {"launches": n,
+                                  "run": "phase 15 (c), rank 0's profiled "
+                                         "windows"}
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
@@ -3879,6 +4357,8 @@ if __name__ == "__main__":
         sys.exit(path_worker(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--llama-lamb-worker"]:
         sys.exit(llama_lamb_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--telemetry-worker"]:
+        sys.exit(telemetry_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--launch-worker"]:
         sys.exit(launch_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

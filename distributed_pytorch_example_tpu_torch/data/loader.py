@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import queue
 import threading
+from contextlib import nullcontext
 from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
@@ -82,6 +83,9 @@ class DeviceLoader:
         )
         self.drop_last = drop_last
         self.prefetch = prefetch
+        # graft-scope (set by Trainer.fit): host-to-device transfers emit
+        # "h2d" trace spans
+        self.telemetry = None
         if drop_last:
             self.steps_per_epoch = len(self.sampler) // self.local_batch_size
         else:
@@ -118,8 +122,10 @@ class DeviceLoader:
         return batch
 
     def _to_device(self, host: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        return {k: v.to(self.device, non_blocking=True)
-                for k, v in host.items()}
+        scope = self.telemetry
+        with scope.span("h2d") if scope is not None else nullcontext():
+            return {k: v.to(self.device, non_blocking=True)
+                    for k, v in host.items()}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self.iter_from(0)

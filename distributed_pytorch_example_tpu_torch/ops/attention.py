@@ -18,15 +18,27 @@ a transpose around its (B, N, S, H) kernel. The port's kernel reads the
 (B, S, N, H) projections through their strides, so there is no transpose
 to avoid and no counterpart here; the q/k/v/o parameter names are the
 same either way.
+
+FLOPs. Inside :func:`count_flops` (one train or eval step a run, for the
+cost record of ``telemetry/cost.py``) attention is counted by one formula
+whichever path runs, and its own products are hidden from torch's FLOP
+counter: the kernel's work is a ctypes launch the counter cannot see, and
+the plain path would count at the full S x S. Per live (query, key) pair
+and head dimension: the forward's two products (2 x 2 FLOPs) and the
+backward's logits recompute plus its four products (5 x 2), only where
+the backward runs. A causal call counts the lower triangle, a key mask
+its live keys.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from types import SimpleNamespace
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
     HEAD_DIMS,
@@ -76,6 +88,89 @@ def _plain_attention(
     return out
 
 
+_FWD_PRODUCTS, _BWD_PRODUCTS = 2, 5
+_tally: Optional[List[int]] = None
+
+
+@contextlib.contextmanager
+def count_flops() -> Iterator[List[int]]:
+    """``[flops]``: attention's FLOPs by the module's formula over the
+    calls inside the block."""
+    global _tally
+    outer, _tally = _tally, [0]
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def live_pairs(q_len: int, k_len: int, batch: int, heads: int,
+               causal: bool, kv_mask: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None) -> int:
+    """(query, key) pairs attended over the batch and the query heads: the
+    causal lower triangle (bottom-right aligned), a key mask's live keys,
+    a general mask's True entries."""
+    if mask is not None:
+        live = mask.bool().cpu().expand(batch, heads, q_len, k_len)
+        if causal:
+            live = live & torch.ones((q_len, k_len), dtype=torch.bool).tril(
+                k_len - q_len)
+        if kv_mask is not None:
+            live = live & kv_mask.bool().cpu()[:, None, None, :]
+        return int(live.sum())
+    # queries that may attend key j: i >= j - (k_len - q_len) under causal
+    first = (torch.arange(k_len) - (k_len - q_len)).clamp(min=0)
+    per_key = ((q_len - first).clamp(0, q_len) if causal
+               else torch.full((k_len,), q_len))
+    if kv_mask is None:
+        return batch * heads * int(per_key.sum())
+    return heads * int((kv_mask.bool().cpu().long() * per_key).sum())
+
+
+def _keep(t):
+    return t
+
+
+class _Counted(torch.autograd.Function):
+    """Runs ``fn(q, k, v)`` and its backward out of sight of the dispatch
+    modes (torch's FLOP counter), adding the formula's backward FLOPs when
+    the backward runs."""
+
+    @staticmethod
+    def forward(ctx, fn, bwd_flops, q, k, v):
+        # the inner graph keeps its own saved tensors, whatever hooks an
+        # enclosing activation checkpoint (remat) has pushed
+        with _disable_current_modes(), torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+            ctx.inputs = [t.detach().requires_grad_(t.requires_grad)
+                          for t in (q, k, v)]
+            ctx.out = fn(*ctx.inputs)
+        ctx.bwd_flops = bwd_flops
+        return ctx.out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        if _tally is not None:
+            _tally[0] += ctx.bwd_flops
+        wanted = [t for t in ctx.inputs if t.requires_grad]
+        with _disable_current_modes():
+            got = iter(torch.autograd.grad(ctx.out, wanted, grad))
+        return (None, None) + tuple(next(got) if t.requires_grad else None
+                                    for t in ctx.inputs)
+
+
+def _counted(fn, q, k, v, causal, kv_mask=None, mask=None):
+    """``fn(q, k, v)``, counted by the formula (see the module doc)."""
+    pairs = live_pairs(q.shape[1], k.shape[1], q.shape[0], q.shape[2],
+                       causal, kv_mask, mask)
+    per_product = 2 * q.shape[-1] * pairs
+    _tally[0] += _FWD_PRODUCTS * per_product
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Counted.apply(fn, _BWD_PRODUCTS * per_product, q, k, v)
+    with _disable_current_modes():
+        return fn(q, k, v)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -120,9 +215,16 @@ def dot_product_attention(
                 f"call: {reason}. Use use_flash=None to auto-select."
             )
     if use_flash:
-        return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask,
-                               softmax_scale=softmax_scale)
-    return _plain_attention(q, k, v, mask, kv_mask, causal, softmax_scale)
+        def run(q, k, v):
+            return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                                   softmax_scale=softmax_scale)
+    else:
+        def run(q, k, v):
+            return _plain_attention(q, k, v, mask, kv_mask, causal,
+                                    softmax_scale)
+    if _tally is not None:
+        return _counted(run, q, k, v, causal, kv_mask, mask)
+    return run(q, k, v)
 
 
 def _only_seq_misaligned(q, k, v, mask, causal) -> bool:

@@ -48,7 +48,9 @@ shows up in the ring's device error word, which :meth:`PeerRing.check`
 (and :func:`check_rings`, at the train step's host sync) reads. A CPU
 tensor takes the plain version across processes: the library collective
 over the process group, which computes what the list-form plain version
-computes.
+computes. Each wrapper runs in a profiler range of its name (the JAX
+kernels' ``named_scope``) and counts its result in the collective tally
+of ``runtime/distributed.py`` (the step cost record).
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ import torch
 
 from distributed_pytorch_example_tpu_torch.ops import _build
 from distributed_pytorch_example_tpu_torch.runtime import distributed
+from distributed_pytorch_example_tpu_torch.runtime.profiler import (
+    scope_marker,
+)
 
 _LANES = 128  # the TPU kernels' row width: halves are (rows, 128)
 MAX_STREAMS = 4  # stream ids per collective kind with their own buffers
@@ -248,6 +253,7 @@ def _payload(x: torch.Tensor, ring: PeerRing, what: str) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+@scope_marker("ring_all_gather")
 def ring_all_gather(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
                     stream: int = 0) -> torch.Tensor:
     """Tiled axis-0 all-gather: ``(n0, ...)`` on each rank ->
@@ -279,12 +285,14 @@ def ring_all_gather(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
         )
     _cuda_call("ring_all_gather launch", err)
     ring_all_gather.launches += 1
+    distributed.note_collective("all-gather", out)
     return out
 
 
 ring_all_gather.launches = 0
 
 
+@scope_marker("ring_reduce_scatter")
 def ring_reduce_scatter(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
                         stream: int = 0) -> torch.Tensor:
     """Tiled reduce-scatter over axis 0: ``(world * c, ...)`` on each
@@ -325,6 +333,7 @@ def ring_reduce_scatter(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
         )
     _cuda_call("ring_reduce_scatter launch", err)
     ring_reduce_scatter.launches += 1
+    distributed.note_collective("reduce-scatter", out)
     return out
 
 

@@ -36,6 +36,11 @@ back to XLA's.
 Leaves walk in the JAX flattened order (``interop.flax_leaves``) and every
 tile is cut from the leaf's JAX layout, so tiles, buckets and the block
 boundaries that span leaf joins equal JAX's.
+
+Each dispatch boundary runs in a profiler range named as JAX names its
+scope (``wire_psum_scatter``, ``wire_all_gather``, ``wire_psum``,
+``wire_bucket<k>``, ``wire_replicate_params``), so a trace attributes the
+collectives' device time per boundary (``telemetry/overlap.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ import torch
 
 from distributed_pytorch_example_tpu_torch.ops import collectives
 from distributed_pytorch_example_tpu_torch.runtime import distributed
+from distributed_pytorch_example_tpu_torch.runtime.profiler import (
+    scope_marker,
+)
 
 COMPRESS_MODES = ("none", "int8-block")
 PARAM_GATHER_MODES = ("float32", "bf16", "int8-block")
@@ -206,6 +214,7 @@ def _unscatter(rows: torch.Tensor, dim: int, chunk_shape) -> torch.Tensor:
     return parts.reshape(shape)
 
 
+@scope_marker("wire_psum_scatter")
 def wire_psum_scatter(x: torch.Tensor, *, scatter_dimension: int,
                       config: Optional[WireConfig] = None,
                       generator: Optional[torch.Generator] = None
@@ -235,6 +244,7 @@ def wire_psum_scatter(x: torch.Tensor, *, scatter_dimension: int,
     return got.sum(dim=0).reshape(chunk_shape)
 
 
+@scope_marker("wire_all_gather")
 def wire_all_gather(x: torch.Tensor, *, gather_dimension: int = 0,
                     config: Optional[WireConfig] = None,
                     generator: Optional[torch.Generator] = None
@@ -257,6 +267,7 @@ def wire_all_gather(x: torch.Tensor, *, gather_dimension: int = 0,
     return torch.cat(list(parts.unbind(0)), dim=gather_dimension)
 
 
+@scope_marker("wire_psum")
 def wire_psum(x: torch.Tensor, *, config: Optional[WireConfig] = None,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """All-reduce sum with optional int8 payloads: the quantized
@@ -495,16 +506,19 @@ def sync_grads(grads: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
         plan = plan_buckets(dims, grads, config, d)
     out: list = list(grads)  # zero-size leaves pass through unsynced
     for bucket in plan.buckets:
-        if bucket.kind == "scatter":
-            _bucket_scatter(out, grads, dims, bucket, d, config, gen, scale)
-        else:
-            _bucket_psum(out, grads, bucket, config, gen, scale)
+        with torch.profiler.record_function(f"wire_bucket{bucket.index}"):
+            if bucket.kind == "scatter":
+                _bucket_scatter(out, grads, dims, bucket, d, config, gen,
+                                scale)
+            else:
+                _bucket_psum(out, grads, bucket, config, gen, scale)
     return out
 
 
 # -- ZeRO-1 parameter re-replication ----------------------------------------
 
 
+@scope_marker("wire_replicate_params")
 def replicate_params(tiles: Sequence[torch.Tensor],
                      dims: Sequence[Optional[int]],
                      config: WireConfig) -> List[torch.Tensor]:

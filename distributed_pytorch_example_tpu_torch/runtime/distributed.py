@@ -41,15 +41,23 @@ CUDA payload is staged through the host; on the ZeRO-1 path that touches
 the psum leaves below the ZeRO-1 floor, the metrics, the IPC handle swap
 and, with a float32 parameter gather, the gathered parameters. bfloat16
 payloads that are only moved travel as their bytes.
+
+Inside :func:`count_collectives` every collective of the port (these
+four, and the ring kernels of ``ops/collectives.py``) adds its kind and
+result bytes to a tally, keyed as the JAX package keys the collectives
+of a compiled program (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``all-to-all``): the cost record of one train step
+(``telemetry/cost.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import socket
 from datetime import timedelta
-from typing import Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -327,6 +335,29 @@ def barrier() -> None:
         dist.barrier()
 
 
+_tally: Optional[Dict[str, Dict[str, int]]] = None
+
+
+@contextlib.contextmanager
+def count_collectives() -> Iterator[Dict[str, Dict[str, int]]]:
+    """``{kind: {count, bytes}}`` of the collectives this process runs
+    inside the block (result bytes, as the JAX package counts them)."""
+    global _tally
+    outer, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def note_collective(kind: str, result: torch.Tensor) -> None:
+    """Count one collective of ``kind`` whose result is ``result``."""
+    if _tally is not None:
+        rec = _tally.setdefault(kind, {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += result.numel() * result.element_size()
+
+
 def all_reduce_mean_(tensor: torch.Tensor) -> torch.Tensor:
     """In-place cross-process mean; the identity for one process."""
     world = process_count()
@@ -352,6 +383,7 @@ def all_reduce_sum_(tensor: torch.Tensor) -> torch.Tensor:
     process."""
     if process_count() == 1:
         return tensor
+    note_collective("all-reduce", tensor)
     if _staged(tensor):
         host = tensor.cpu()
         dist.all_reduce(host, op=dist.ReduceOp.SUM)
@@ -373,6 +405,7 @@ def all_gather_tiled(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src)
     out = torch.cat(parts, dim=dim).to(x.device)
+    note_collective("all-gather", out)
     return out.view(x.dtype) if out.dtype != x.dtype else out
 
 
@@ -389,12 +422,17 @@ def reduce_scatter_tiled(x: torch.Tensor) -> torch.Tensor:
     if dist.get_backend() == "nccl":
         out = torch.empty((chunk,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
+        note_collective("reduce-scatter", out)
         dist.reduce_scatter_tensor(out, x.contiguous())
         return out
-    # gloo has no reduce-scatter: all-reduce, then this rank's tile
-    total = all_reduce_sum_(x.clone())
+    # gloo has no reduce-scatter: all-reduce, then this rank's tile (the
+    # tally counts what the program asked for: one reduce-scatter)
+    with count_collectives():
+        total = all_reduce_sum_(x.clone())
     rank = process_index()
-    return total[rank * chunk:(rank + 1) * chunk].clone()
+    out = total[rank * chunk:(rank + 1) * chunk].clone()
+    note_collective("reduce-scatter", out)
+    return out
 
 
 def all_to_all_rows(x: torch.Tensor) -> torch.Tensor:
@@ -408,5 +446,6 @@ def all_to_all_rows(x: torch.Tensor) -> torch.Tensor:
         src = src.cpu()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src)
+    note_collective("all-to-all", out)
     out = out.to(x.device)
     return out.view(x.dtype) if out.dtype != x.dtype else out

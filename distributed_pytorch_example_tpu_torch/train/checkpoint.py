@@ -504,8 +504,8 @@ def _place(full, mine):
     """What this rank keeps of one reassembled leaf: where the layout
     shards it (``mine`` is this rank's :class:`Chunk` of the live state),
     a copy of its tile as a :class:`Chunk`, which the layout takes as it
-    is; else the whole leaf."""
-    if not isinstance(mine, Chunk):
+    is; else (and for a chunk the rank keeps whole) the whole leaf."""
+    if not isinstance(mine, Chunk) or mine.whole:
         return full
     idx = tuple(slice(s, s + d) for s, d in zip(mine.start, mine.data.shape))
     return Chunk(mine.shape, list(mine.start),

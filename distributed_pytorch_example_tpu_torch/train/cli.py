@@ -42,6 +42,13 @@ than one process. ``--resume`` takes a checkpoint of either package, in
 either format, at any process count. SIGTERM (SIGINT) finishes the step in flight, saves
 ``latest`` with the loader cursor and exits 143 (130); the next launch
 with ``--resume`` continues at that batch.
+Telemetry is on (``--no-telemetry`` turns it off): ``trace_events.json``
+beside ``metrics.jsonl`` holds the step, data_load, h2d, eval and
+checkpoint spans, recovery events are records of ``metrics.jsonl``, and
+``--telemetry-every N`` adds a record every N steps (step_time_ms,
+mfu_analytic, flops_per_step_per_device, hbm_peak_bytes, the sentinels).
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the global
+steps ``--profile-steps start,stop``.
 ``--device cpu`` runs on the CPU; the default, ``cuda``, raises without a
 card. Flags of the JAX CLI that this slice does not serve are refused.
 """
@@ -212,10 +219,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error(f"--model {args.model} trains on --dataset "
                      f"{'|'.join(_DATASETS[args.model])}, not "
                      f"{args.dataset!r}")
-    if args.optimizer == "adafactor" and (args.zero1 or args.wire != "none"):
-        parser.error("--optimizer adafactor under --zero1 or --wire is not "
-                     "ported yet: its factored statistics span every rank's "
-                     "tile (ROADMAP.md queue 1, item 7)")
     if args.augment != "none" and args.dataset not in _IMAGES:
         parser.error(f"--augment only applies to image datasets, not "
                      f"{args.dataset!r}")
@@ -272,6 +275,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                               shuffle=False, seed=args.seed)
     logger.info("Dataset size: %d, batches per epoch: %d", len(train_ds),
                 len(train_loader))
+    try:
+        profile_window = tuple(int(x) for x in args.profile_steps.split(","))
+        if len(profile_window) != 2 or profile_window[0] >= profile_window[1]:
+            raise ValueError
+    except ValueError:
+        parser.error("--profile-steps must be 'start,stop' with start < stop")
     optimizer = make_optimizer(
         model, args.optimizer, args.lr,
         schedule=args.schedule, warmup_steps=args.warmup_steps,
@@ -299,7 +308,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                       save_every_steps=args.save_every_steps,
                       max_bad_steps=args.max_bad_steps,
                       skip_nonfinite=not args.no_skip_nonfinite,
-                      checkpoint_retain=args.checkpoint_retain)
+                      checkpoint_retain=args.checkpoint_retain,
+                      profile_dir=args.profile_dir,
+                      profile_window=profile_window,
+                      telemetry=not args.no_telemetry,
+                      telemetry_every=args.telemetry_every)
     try:
         trainer.fit(train_loader, val_loader, epochs=args.epochs,
                     resume=args.resume)

@@ -40,17 +40,33 @@ either format at any process count: the loader cursor counts global
 batches, so at the same global batch size a resume at another world
 repeats no sample and skips none.
 
-Not in this slice: the telemetry scope, the profiler and publishing.
+graft-scope (``telemetry/``, on by default as in JAX): the first train
+and eval step of a run are measured into the cost registry (FLOPs, peak
+memory, collectives), every step ticks the rate-limited clock with a
+fence on the loss, and each log boundary (or every ``telemetry_every``
+steps, which also writes a per-N-step record) fetches the loss and the
+sentinels in one host read; ``data_load``, ``h2d``, ``step``, ``eval``
+and ``checkpoint`` spans and the bucket plan's issue schedule go to
+``trace_events.json`` beside ``metrics.jsonl``; recovery events
+(``bad_step_skip``, ``rollback``, ``checkpoint_fallback``) are records of
+``metrics.jsonl``; ``telemetry_summary`` holds the scope's summary after
+``fit``, with ``wire`` and ``overlap_scheduled`` under a partitioner.
+``profile_dir`` traces the global steps of ``profile_window`` (run-relative,
+rebased on resume) with ``torch.profiler`` (``runtime/profiler.py``).
+
+Not in this slice: publishing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import signal
 import sys
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -64,6 +80,12 @@ from distributed_pytorch_example_tpu_torch.robustness import (
 )
 from distributed_pytorch_example_tpu_torch.runtime import distributed as dist
 from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
+from distributed_pytorch_example_tpu_torch.runtime.profiler import StepProfiler
+from distributed_pytorch_example_tpu_torch.telemetry import (
+    Telemetry,
+    TelemetryConfig,
+    scheduled_overlap,
+)
 from distributed_pytorch_example_tpu_torch.train import checkpoint as ckpt_lib
 from distributed_pytorch_example_tpu_torch.train.metrics import (
     MetricAccumulator,
@@ -82,6 +104,25 @@ from distributed_pytorch_example_tpu_torch.train.step import (
 )
 
 logger = get_logger(__name__)
+
+
+def _span(scope: Optional[Telemetry], name: str):
+    """A graft-scope trace span, or a no-op when telemetry is off."""
+    if scope is None:
+        return contextlib.nullcontext()
+    return scope.span(name)
+
+
+def _spanned_batches(iterator, scope: Optional[Telemetry]):
+    """Wrap an iterator so each ``next()`` is timed as a "data_load" span
+    (the consumer-side wait on the loader)."""
+    while True:
+        with _span(scope, "data_load"):
+            try:
+                item = next(iterator)
+            except StopIteration:
+                return
+        yield item
 
 
 class PreemptionInterrupt(BaseException):
@@ -117,6 +158,10 @@ class Trainer:
         skip_nonfinite: bool = True,
         grad_accum_steps: int = 1,
         checkpoint_retain: int = ckpt_lib.DEFAULT_RETAIN,
+        profile_dir: Optional[str] = None,
+        profile_window: tuple = (10, 13),
+        telemetry: Union[bool, TelemetryConfig] = True,
+        telemetry_every: int = 0,
     ):
         if grad_accum_steps < 1:
             raise ValueError(
@@ -161,6 +206,29 @@ class Trainer:
         self._bad_since_recovery = 0
         self._rolled_back = False
         self._global_step = 0
+        self._profile_dir = profile_dir
+        self._profile_window = profile_window
+        self._profiler: Optional[StepProfiler] = None  # made in fit()
+        # graft-scope: True takes the defaults (epoch records only),
+        # telemetry_every > 0 adds a record every N steps, a
+        # TelemetryConfig wins over both, False turns the scope off
+        if isinstance(telemetry, TelemetryConfig):
+            self._telemetry_cfg: Optional[TelemetryConfig] = telemetry
+        elif telemetry:
+            self._telemetry_cfg = TelemetryConfig(every=telemetry_every)
+        else:
+            self._telemetry_cfg = None
+        self.scope: Optional[Telemetry] = None
+        self.telemetry_summary: Dict[str, Any] = {}
+        self.wire_report: Optional[Dict[str, Any]] = None  # set in init()
+        self.overlap_report: Optional[Dict[str, Any]] = None
+        self._bucket_plan = None
+        # events fired before fit's scope exists, flushed into it on
+        # creation (see _record_event)
+        self._pending_events: List[Any] = []
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     def init(self) -> TrainState:
         """Log the parameter count and, under a partitioner, the analytic
@@ -168,7 +236,7 @@ class Trainer:
         graft-wire lines); the model is built with its weights."""
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Model parameters: %s", f"{n_params:,}")
-        self.wire_report = None
+        self.wire_report = self.overlap_report = self._bucket_plan = None
         if self.partitioner is None:
             return self.state
         wire = self.partitioner.wire or wirelib.WireConfig()
@@ -190,11 +258,20 @@ class Trainer:
                 dims = self.partitioner.zero1_dims(shapes)
             else:
                 dims = dict.fromkeys(shapes)
-            plan = wirelib.plan_buckets(list(dims.values()),
-                                        list(shapes.values()), wire,
-                                        self.partitioner.world)
-            logger.info("graft-wire: %d buckets (%s B target)",
-                        len(plan.buckets), f"{wire.bucket_bytes:,}")
+            # the plan sync_grads executes (grad shapes are the params')
+            self._bucket_plan = wirelib.plan_buckets(
+                list(dims.values()), list(shapes.values()), wire,
+                self.partitioner.world)
+            self.overlap_report = scheduled_overlap(
+                self._bucket_plan, grad_accum_steps=self.grad_accum_steps)
+            logger.info(
+                "graft-wire: %d overlap buckets (%s B target) — scheduled "
+                "overlap_frac %.3f (%s of %s wire bytes hideable)",
+                self.overlap_report["num_buckets"], f"{wire.bucket_bytes:,}",
+                self.overlap_report["overlap_frac_scheduled"],
+                f"{self.overlap_report['hideable_wire_bytes']:,}",
+                f"{self.overlap_report['total_wire_bytes']:,}",
+            )
         return self.state
 
     # -- checkpoints --------------------------------------------------------
@@ -241,7 +318,9 @@ class Trainer:
         man = intake.loader_manifest(loader, epoch, batch_idx + 1)
         if man is not None:
             extra[intake.LOADER_MANIFEST_KEY] = man
-        self._save(ckpt_lib.LATEST_NAME, epoch, float(metrics["loss"]), extra)
+        with _span(self.scope, "checkpoint"):
+            self._save(ckpt_lib.LATEST_NAME, epoch, float(metrics["loss"]),
+                       extra)
 
     # -- epochs -----------------------------------------------------------
 
@@ -259,11 +338,16 @@ class Trainer:
             batches = loader.iter_from(start_batch)
         else:
             batches = iter(loader)
-        for batch_idx, batch in enumerate(batches, start=start_batch):
+        scope = self.scope
+        for batch_idx, batch in enumerate(_spanned_batches(batches, scope),
+                                          start=start_batch):
+            if self._profiler is not None:
+                self._profiler.step(self._global_step)
             # deterministic fault injection (no-op without a chaos plan);
             # the global step counts on through a rollback, as JAX's does
             batch = chaos.corrupt_batch(batch, self._global_step)
-            metrics = self.train_step(self.state, batch)
+            with self._measured("train_step"), _span(scope, "step"):
+                metrics = self.train_step(self.state, batch)
             self._global_step += 1
             acc.append(metrics)
             if "bad_step" in metrics:
@@ -271,6 +355,12 @@ class Trainer:
             # a failed background save surfaces within a step of the fault
             self._saver.check()
             chaos.crash_point("step")
+            if scope is not None:
+                # the clock's tick (a fence on the loss every sample_every
+                # steps) and, at boundaries, the one-fetch health check,
+                # the straggler exchange and the per-N-step record
+                scope.on_step(self._global_step, metrics,
+                              fence=lambda m=metrics: float(m["loss"]))
             if batch_idx % self.log_every == 0:
                 if dist.is_coordinator():
                     logger.info("Epoch %d, Batch %d/%d, Loss: %.4f", epoch,
@@ -308,10 +398,24 @@ class Trainer:
 
     # -- bad-step budget (graft-armor) ------------------------------------
 
+    def _measured(self, tag: str):
+        """The cost measurement of the run's first ``tag`` step (telemetry
+        on, not yet measured), else a no-op."""
+        if self.scope is None or self.scope.costs.get(tag) is not None:
+            return contextlib.nullcontext()
+        return self.scope.measure(tag, self._device())
+
     def _record_event(self, kind: str, **fields) -> None:
-        """Recovery-event sink: counts the checkpoint fallbacks."""
+        """Recovery-event sink: counts the checkpoint fallbacks and
+        forwards every event to graft-scope as a record of
+        ``metrics.jsonl``; events before fit's scope exists buffer until
+        it does."""
         if kind == "checkpoint_fallback":
             self.recovery["checkpoint_fallbacks"] += 1
+        if self.scope is not None:
+            self.scope.record_event(kind, **fields)
+        elif len(self._pending_events) < 256:  # the scope may never come
+            self._pending_events.append((kind, fields))
 
     def _drain_bad_steps(self) -> None:
         """Sum the bad-step flags since the last boundary (one host fetch)
@@ -329,6 +433,11 @@ class Trainer:
             "graft-armor: %d nonfinite step(s) skipped (%d since last "
             "recovery, budget %s)", new, self._bad_since_recovery,
             self.max_bad_steps or "unlimited",
+        )
+        self._record_event(
+            "bad_step_skip", step=self._global_step, new_skips=new,
+            since_recovery=self._bad_since_recovery,
+            budget=self.max_bad_steps,
         )
         if self.max_bad_steps and self._bad_since_recovery > self.max_bad_steps:
             self._rollback_or_fail()
@@ -363,25 +472,34 @@ class Trainer:
             "(epoch %d); the next budget exhaustion hard-fails",
             latest, epoch,
         )
+        self._record_event("rollback", step=self._global_step,
+                           checkpoint=latest, epoch=epoch)
 
     def validate(self, loader) -> Dict[str, float]:
         acc = MetricAccumulator()
         for batch_idx, batch in enumerate(loader):
-            acc.append(self.eval_step(self.state, batch, batch_idx))
+            with self._measured("eval_step"), _span(self.scope, "eval"):
+                acc.append(self.eval_step(self.state, batch, batch_idx))
         return acc.result()
 
     # -- full fit ---------------------------------------------------------
 
     def fit(self, train_loader, val_loader=None, epochs: int = 10,
             resume: Optional[str] = None) -> List[Dict[str, float]]:
+        self._pending_events = []
         self.init()
         if self.checkpoint_dir and dist.is_coordinator():
             os.makedirs(self.checkpoint_dir, exist_ok=True)
+        self._profiler = (
+            StepProfiler(self._profile_dir, self._profile_window,
+                         dist.process_index(), device=self._device())
+            if self._profile_dir else None)
         self._saver.wait()  # a prior fit's pending write must land first
         resuming = bool(resume and os.path.exists(resume))
         writer = MetricsWriter(self._metrics_file,
                                enabled=dist.is_coordinator(),
                                append=resuming)
+        self._open_scope(writer, train_loader, val_loader)
         start_epoch = start_batch = 0
         best_accuracy = 0.0
         self.recovery = {"bad_steps": 0, "rollbacks": 0,
@@ -411,12 +529,59 @@ class Trainer:
                     start_epoch, start_batch = start_epoch + 1, 0
             dist.barrier()
         except BaseException:
+            self._close_scope(train_loader, val_loader)
             writer.close()
             raise
+        # telemetry records carry the true step across a resume; the
+        # profile window is run-relative, re-anchored at the resumed step
         self._global_step = self.state.step
+        if self._profiler is not None:
+            self._profiler.rebase(self._global_step)
         history = self._fit_epochs(train_loader, val_loader, start_epoch,
                                    epochs, best_accuracy, writer, start_batch)
         return history
+
+    def _open_scope(self, writer, train_loader, val_loader) -> None:
+        """The run's graft-scope (telemetry on): its trace beside
+        ``metrics.jsonl``, the loaders' h2d spans, the events buffered
+        before it existed, and the bucket plan's issue schedule."""
+        if self._telemetry_cfg is None:
+            return
+        cfg = self._telemetry_cfg
+        if cfg.trace_file is None and self._metrics_file:
+            cfg = dataclasses.replace(cfg, trace_file=os.path.join(
+                os.path.dirname(self._metrics_file) or ".",
+                "trace_events.json"))
+        self.scope = Telemetry(cfg, writer=writer, profiler=self._profiler,
+                               process_index=dist.process_index(),
+                               fallback_every=self.log_every)
+        for loader in (train_loader, val_loader):
+            if loader is not None and hasattr(loader, "telemetry"):
+                loader.telemetry = self.scope
+        for kind, fields in self._pending_events:
+            self.scope.record_event(kind, **fields)
+        self._pending_events = []
+        if self._bucket_plan is not None and self.scope.trace is not None:
+            scheduled_overlap(self._bucket_plan,
+                              grad_accum_steps=self.grad_accum_steps,
+                              trace=self.scope.trace)
+
+    def _close_scope(self, train_loader, val_loader) -> None:
+        """Close the scope into ``telemetry_summary`` (with the wire
+        report and the scheduled overlap) and the profiler."""
+        if self.scope is not None:
+            self.telemetry_summary = self.scope.close()
+            if self.wire_report is not None:
+                self.telemetry_summary["wire"] = dict(self.wire_report)
+            if self.overlap_report is not None:
+                self.telemetry_summary["overlap_scheduled"] = dict(
+                    self.overlap_report)
+            for loader in (train_loader, val_loader):
+                if loader is not None and hasattr(loader, "telemetry"):
+                    loader.telemetry = None
+            self.scope = None
+        if self._profiler is not None:
+            self._profiler.close()
 
     def _fit_epochs(self, train_loader, val_loader, start_epoch, epochs,
                     best_accuracy, writer, start_batch):
@@ -451,6 +616,9 @@ class Trainer:
                 signal.signal(signal.SIGTERM, prev_term)
             if prev_int is not None:
                 signal.signal(signal.SIGINT, prev_int)
+            # an exception mid-window must not leave an open trace, an
+            # unflushed metrics file or a half-queued save
+            self._close_scope(train_loader, val_loader)
             writer.close()
             if sys.exc_info()[1] is not None:
                 # already unwinding: a save failure must not replace the
@@ -529,10 +697,11 @@ class Trainer:
                 if man is not None:
                     extra[intake.LOADER_MANIFEST_KEY] = man
                 # epoch + 1: resume continues after the finished epoch
-                if is_best:
-                    self._save(ckpt_lib.BEST_NAME, epoch + 1,
+                with _span(self.scope, "checkpoint"):
+                    if is_best:
+                        self._save(ckpt_lib.BEST_NAME, epoch + 1,
+                                   record["train_loss"], extra)
+                    self._save(ckpt_lib.LATEST_NAME, epoch + 1,
                                record["train_loss"], extra)
-                self._save(ckpt_lib.LATEST_NAME, epoch + 1,
-                           record["train_loss"], extra)
             dist.barrier()
         return history, self._best_accuracy

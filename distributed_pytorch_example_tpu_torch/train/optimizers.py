@@ -21,8 +21,10 @@ schedule as they were.
 update plus its re-replication gather): the optimizer keeps state only for
 this rank's tile of every leaf the partitioner shards, and full state for
 the rest. Lamb's trust ratio there takes whole-leaf norms (one all-reduce
-a step); adafactor, whose factored statistics are row and column means
-of the whole leaf, is refused under ZeRO-1 (ROADMAP.md item 7).
+a step); adafactor's statistics are the whole leaf's too: a tile's row
+and column sums and its sums of squares are summed across ranks (two
+all-reduces a step, :class:`Adafactor`), and an unfactored ``v`` is tiled
+like its parameter.
 
 Checkpoints carry the optimizer as the optax state tree of the same
 configuration (:meth:`Optimizer.state_tree`, :meth:`Optimizer.
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
                     Union)
 
@@ -60,12 +63,13 @@ import numpy as np
 import torch
 
 from distributed_pytorch_example_tpu_torch import interop
-from distributed_pytorch_example_tpu_torch.models.transformer import (
-    _not_in_slice,
-)
 from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.runtime import distributed
 from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
+from distributed_pytorch_example_tpu_torch.telemetry.sentinels import (
+    global_norm,
+    nonfinite_count,
+)
 
 logger = get_logger(__name__)
 
@@ -200,6 +204,45 @@ def _factored_dims(shape):
     return int(order[-2]), int(order[-1])
 
 
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """Where a ZeRO-1 tile sits in its whole leaf (JAX layout): the leaf
+    of ``shape`` is cut along ``dim`` into ``count`` equal chunks, and the
+    tile is chunk ``index``."""
+
+    shape: tuple
+    dim: int
+    index: int
+    count: int
+
+    def _axis(self, reduced: int) -> int:
+        """``dim``'s axis in a tensor of the leaf's shape without axis
+        ``reduced``."""
+        return self.dim - (self.dim > reduced)
+
+    def place(self, partial: torch.Tensor, reduced: int) -> torch.Tensor:
+        """The tile's sums over axis ``reduced`` as the whole leaf's
+        partial sums (zeros where other ranks' tiles lie): summed across
+        ranks, they are the whole leaf's sums over that axis."""
+        if self.dim == reduced:
+            return partial
+        full = list(np.delete(self.shape, reduced))
+        out = partial.new_zeros(full)
+        chunk = self.shape[self.dim] // self.count
+        out.narrow(self._axis(reduced), self.index * chunk, chunk).copy_(
+            partial)
+        return out
+
+    def cut(self, factor: torch.Tensor, reduced: int) -> torch.Tensor:
+        """A whole leaf's factor over the axes other than ``reduced`` cut
+        to the tile's part (all of it when the tile is cut along
+        ``reduced``)."""
+        if self.dim == reduced:
+            return factor
+        chunk = self.shape[self.dim] // self.count
+        return factor.narrow(self._axis(reduced), self.index * chunk, chunk)
+
+
 class Adafactor(torch.optim.Optimizer):
     """``optax.adafactor(lr, weight_decay_rate=wd or None)`` at optax's
     defaults, as a torch optimizer, leaf by leaf in the leaf's JAX layout:
@@ -222,11 +265,23 @@ class Adafactor(torch.optim.Optimizer):
     ``perms`` maps a parameter to the dimension order of its JAX leaf (a
     ``Linear`` weight (out, in) is a ``Dense`` kernel (in, out): (1, 0));
     :func:`make_optimizer` fills it from the model, and a parameter
-    without an entry is its own layout."""
+    without an entry is its own layout.
+
+    Under ZeRO-1 (:class:`ShardedUpdate` fills ``tiles`` and
+    ``all_reduce``) a parameter may be a :class:`Tile` of its leaf, and
+    every statistic is still the whole leaf's: each rank adds its tile's
+    row and column sums of g² + 1e-30 into zero-filled whole-leaf buffers
+    (and the tile's sum of p²), one all-reduce sums every leaf's, and each
+    rank keeps the same whole ``v_row`` and ``v_col``; a second all-reduce
+    sums the tiles' sums of u² for the block clip's rms(u). An unfactored
+    ``v`` is tiled like its parameter."""
 
     def __init__(self, params, lr: float = 1e-3, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
         self.perms: Dict[torch.Tensor, Optional[tuple]] = {}
+        self.tiles: Dict[torch.Tensor, Tile] = {}
+        self.all_reduce: Optional[Callable[[torch.Tensor],
+                                           torch.Tensor]] = None
 
     def jax_view(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """``t`` (shaped like ``p``) in ``p``'s JAX layout: a view."""
@@ -244,51 +299,101 @@ class Adafactor(torch.optim.Optimizer):
         return {"v_row": tuple(np.delete(shape, d0)),
                 "v_col": tuple(np.delete(shape, d1)), "v": (1,)}
 
+    def _sum_across_ranks(self, sums: List[torch.Tensor]) -> None:
+        """Sum the tiles' partial sums across ranks in one collective, in
+        place."""
+        if not sums or self.all_reduce is None:
+            return
+        flat = self.all_reduce(torch.cat([t.reshape(-1) for t in sums]))
+        offset = 0
+        for t in sums:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adafactor.step takes no closure")
         for group in self.param_groups:
-            lr, wd = group["lr"], group["weight_decay"]
+            leaves = []
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 w = self.jax_view(p, p)
-                g = self.jax_view(p, p.grad).float()
+                tile = self.tiles.get(p)
+                shape = tile.shape if tile is not None else tuple(w.shape)
                 st = self.state[p]
                 if "step" not in st:
                     st["step"] = torch.tensor(0.0)
-                    for key, shape in self.init_state(w.shape).items():
-                        st[key] = torch.zeros(shape, device=p.device)
+                    for key, init in self.init_state(shape).items():
+                        if key == "v" and init == shape:
+                            init = tuple(w.shape)  # tiled like its param
+                        st[key] = torch.zeros(init, device=p.device)
                 # optax's decay schedule, in float32
-                t = (st["step"] + 1).float()
-                decay = 1.0 - t.pow(-_DECAY_RATE)
-                rate, keep = float(decay), float(1.0 - decay)
-                sq = g.square() + _EPS
-                dims = _factored_dims(tuple(w.shape))
-                if dims is not None:
-                    d1, d0 = dims
-                    v_row = st["v_row"].mul_(rate).add_(
-                        sq.mean(dim=d0) * keep)
-                    v_col = st["v_col"].mul_(rate).add_(
-                        sq.mean(dim=d1) * keep)
-                    reduced = d1 - 1 if d1 > d0 else d1
-                    row = (v_row / v_row.mean(dim=reduced, keepdim=True)
-                           ).pow(-0.5)
-                    u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
-                else:
-                    v = st["v"].mul_(rate).add_(sq * keep)
-                    u = g * v.pow(-0.5)
-                rms_u = u.square().mean().sqrt()
-                u = u / torch.clamp(rms_u / _CLIPPING_THRESHOLD, min=1.0)
-                u = u * lr
-                rms_p = w.float().square().mean().sqrt()
-                u = u * torch.where(rms_p <= _MIN_SCALE, _MIN_SCALE, rms_p)
-                if wd:
-                    u = u + wd * w
-                w.sub_(u.to(w.dtype))
-                st["step"] += 1
+                decay = 1.0 - (st["step"] + 1).float().pow(-_DECAY_RATE)
+                leaves.append(SimpleNamespace(
+                    w=w, g=self.jax_view(p, p.grad).float(), st=st,
+                    tile=tile, shape=shape, dims=_factored_dims(shape),
+                    rate=float(decay), keep=float(1.0 - decay)))
+            self._update(leaves, group["lr"], group["weight_decay"])
         return None
+
+    def _update(self, leaves, lr: float, wd: float) -> None:
+        # the statistics: a tile's as partial sums, reduced in one
+        # collective with the tiles' sums of p²
+        sums = []
+        for f in leaves:
+            sq = f.g.square() + _EPS
+            if f.dims is None:
+                f.v = f.st["v"].mul_(f.rate).add_(sq * f.keep)
+            elif f.tile is None:
+                d1, d0 = f.dims
+                f.row, f.col = sq.mean(dim=d0), sq.mean(dim=d1)
+            else:
+                d1, d0 = f.dims
+                f.row = f.tile.place(sq.sum(dim=d0), d0)
+                f.col = f.tile.place(sq.sum(dim=d1), d1)
+                sums += [f.row, f.col]
+            if f.tile is not None:
+                f.p_sq = f.w.float().square().sum().reshape(1)
+                sums.append(f.p_sq)
+        self._sum_across_ranks(sums)
+        sums = []
+        for f in leaves:
+            if f.dims is None:
+                f.u = f.g * f.v.pow(-0.5)
+            else:
+                d1, d0 = f.dims
+                row, col = f.row, f.col
+                if f.tile is not None:  # sums -> means over the whole leaf
+                    row, col = row / f.shape[d0], col / f.shape[d1]
+                v_row = f.st["v_row"].mul_(f.rate).add_(row * f.keep)
+                v_col = f.st["v_col"].mul_(f.rate).add_(col * f.keep)
+                reduced = d1 - 1 if d1 > d0 else d1
+                row = (v_row / v_row.mean(dim=reduced, keepdim=True)
+                       ).pow(-0.5)
+                col = v_col.pow(-0.5)
+                if f.tile is not None:
+                    row, col = f.tile.cut(row, d0), f.tile.cut(col, d1)
+                f.u = f.g * row.unsqueeze(d0) * col.unsqueeze(d1)
+            if f.tile is not None:
+                f.u_sq = f.u.square().sum().reshape(1)
+                sums.append(f.u_sq)
+        self._sum_across_ranks(sums)
+        for f in leaves:
+            if f.tile is None:
+                rms_u = f.u.square().mean().sqrt()
+                rms_p = f.w.float().square().mean().sqrt()
+            else:
+                n = math.prod(f.shape)
+                rms_u, rms_p = (f.u_sq[0] / n).sqrt(), (f.p_sq[0] / n).sqrt()
+            u = f.u / torch.clamp(rms_u / _CLIPPING_THRESHOLD, min=1.0)
+            u = u * lr
+            u = u * torch.where(rms_p <= _MIN_SCALE, _MIN_SCALE, rms_p)
+            if wd:
+                u = u + wd * f.w
+            f.w.sub_(u.to(f.w.dtype))
+            f.st["step"] += 1
 
 
 class Optimizer:
@@ -438,10 +543,11 @@ class Optimizer:
             inits = [Adafactor.init_state(shape) for shape
                      in layout.full_shapes()]
             for name in ("v_row", "v_col", "v"):
-                first[name] = layout.tree([
+                first[name] = layout.tree(layout.stats(name, [
                     state[t][name] if name in state.get(t, {})
-                    else torch.zeros(init[name], device=t.device)
-                    for t, init in zip(layout.targets, inits)])
+                    else layout.stat_init(i, name, init[name], t.device)
+                    for i, (t, init) in enumerate(zip(layout.targets,
+                                                      inits))], gather))
         for name, key in self._slots().items():
             moments = [state.get(t, {}).get(key) for t in layout.targets]
             moments = [m if m is not None
@@ -522,7 +628,7 @@ class Optimizer:
             for name, key in self._slots().items():
                 st[key] = moments[name][i].to(target.device, target.dtype)
             for name, values in factored.items():
-                st[name] = interop.as_tensor(values[i]).to(
+                st[name] = layout.stat_from_full(name, i, values[i]).to(
                     target.device, torch.float32).clone()
             if not sgd:
                 group = next(g for g in self.optimizer.param_groups
@@ -590,6 +696,9 @@ class Chunk:
     start: List[int]
     data: torch.Tensor
     count: int
+    # the rank keeps the whole leaf: the chunk is only where the sharded
+    # format writes it (an adafactor statistic JAX shards, kept whole here)
+    whole: bool = False
 
 
 class StateLayout:
@@ -649,26 +758,28 @@ class StateLayout:
         Nothing is sharded here."""
         return self.to_full(tensors)
 
+    # adafactor's statistics live in the JAX layout, shaped by the whole
+    # leaf (``Adafactor.init_state``), not like the targets
+
+    def stat_init(self, i: int, name: str, shape: tuple,
+                  device) -> torch.Tensor:
+        """Leaf ``i``'s statistic ``name`` before the first update."""
+        return torch.zeros(shape, device=device)
+
+    def stats(self, name: str, values: Sequence[torch.Tensor],
+              gather: bool = True) -> list:
+        """Statistic ``name`` of every leaf as :meth:`to_full` /
+        :meth:`chunks` give the moments: whole leaves here."""
+        return list(values)
+
+    def stat_from_full(self, name: str, i: int, full) -> torch.Tensor:
+        """Leaf ``i``'s statistic ``name`` as the optimizer keeps it, from
+        the whole statistic (or its chunk)."""
+        return interop.as_tensor(full)
+
     def refresh(self) -> None:
         """Re-derive whatever the layout keeps beside the parameters
         after they were loaded (nothing here)."""
-
-
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every gradient, as a float32 device
-    scalar (NaN or Inf when any element is)."""
-    norms = torch._foreach_norm([g.float() for g in grads])
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
-def nonfinite_count(grads: List[torch.Tensor]) -> torch.Tensor:
-    """Number of NaN or Inf elements over every gradient, as a float32
-    device scalar (the JAX package's ``telemetry.sentinels.nonfinite_count``,
-    the train step's skip predicate)."""
-    if not grads:
-        return torch.zeros(())
-    finite = torch.stack([torch.isfinite(g).sum() for g in grads]).sum()
-    return (sum(g.numel() for g in grads) - finite).float()
 
 
 class ShardedUpdate:
@@ -696,11 +807,6 @@ class ShardedUpdate:
         else:
             by_path = dict.fromkeys(shapes)
         self.dims = [by_path[leaf.key] for leaf in self.leaves]
-        if isinstance(optimizer.optimizer, Adafactor) and any(
-                d is not None for d in self.dims):
-            raise _not_in_slice(
-                "adafactor under ZeRO-1 (its factored statistics are row "
-                "and column means of the whole leaf, item 7)")
         self.partitioner = partitioner
         self.rank, self.world = rank, world
         self.tiles: List[Optional[torch.Tensor]] = []
@@ -719,6 +825,12 @@ class ShardedUpdate:
         optimizer.norm_fn = self.global_norm
         if isinstance(optimizer.optimizer, Lamb):
             optimizer.optimizer.leaf_norms = self.whole_leaf_norms
+        if isinstance(optimizer.optimizer, Adafactor):
+            optimizer.optimizer.tiles = {
+                t: Tile(shapes[leaf.key], dim, rank, world)
+                for leaf, t, dim in zip(self.leaves, self.tiles, self.dims)
+                if t is not None}
+            optimizer.optimizer.all_reduce = distributed.all_reduce_sum_
         self.optimizer = optimizer
 
     def whole_leaf_norms(self, params, p_norm: torch.Tensor,
@@ -772,6 +884,22 @@ class ShardedUpdate:
             sq = sq + torch.stack(
                 torch._foreach_norm([g.float() for g in rest])).square().sum()
         return sq.sqrt()
+
+    def norm_and_count(self):
+        """:meth:`global_norm` and :meth:`nonfinite_count` with the tiles'
+        partial sums reduced in one collective."""
+        tiles = [t.grad for t in self.tiles if t is not None]
+        rest = [p.grad for p, t in zip(self.params, self.tiles) if t is None]
+        device = self.params[0].device
+        sums = torch.zeros(2, device=device)
+        if tiles:
+            sums = torch.stack([global_norm(tiles).square(),
+                                nonfinite_count(tiles)])
+            sums = distributed.all_reduce_sum_(sums)
+        if rest:
+            sums = sums + torch.stack([global_norm(rest).square(),
+                                       nonfinite_count(rest)])
+        return sums[0].sqrt(), sums[1]
 
     def nonfinite_count(self) -> torch.Tensor:
         """NaN or Inf elements of the synced gradients over the whole
@@ -851,7 +979,14 @@ class ShardedLayout(StateLayout):
         u = self.update
         out = [None if d is not None else leaf.to_jax(t)
                for leaf, t, d in zip(self.leaves, tensors, u.dims)]
-        idx = [i for i, d in enumerate(u.dims) if d is not None]
+        self._gather_into(out, tensors,
+                          [i for i, d in enumerate(u.dims) if d is not None])
+        return out
+
+    def _gather_into(self, out: list, tensors, idx: List[int]) -> None:
+        """``out[i]`` = the whole leaf of the tiles ``tensors[i]`` for each
+        ``i`` of ``idx``: one library all-gather for all of them."""
+        u = self.update
         if idx:
             flat = torch.cat([tensors[i].reshape(-1).float() for i in idx])
             rows = distributed.all_gather_tiled(flat[None])  # (world, n)
@@ -861,7 +996,61 @@ class ShardedLayout(StateLayout):
                 out[i] = wirelib._unscatter(rows[:, offset:offset + n],
                                             u.dims[i], u.chunk_shapes[i])
                 offset += n
+
+    def _tiled(self, name: str, i: int) -> bool:
+        """Whether leaf ``i``'s statistic ``name`` is a tile: the ``v`` of
+        an unfactored leaf ZeRO-1 shards (tiled like its parameter)."""
+        return (name == "v" and self.update.dims[i] is not None
+                and _factored_dims(self.full_shapes()[i]) is None)
+
+    def stat_init(self, i: int, name: str, shape: tuple,
+                  device) -> torch.Tensor:
+        if self._tiled(name, i):
+            shape = self.update.chunk_shapes[i]
+        return torch.zeros(shape, device=device)
+
+    @torch.no_grad()
+    def stats(self, name: str, values: Sequence[torch.Tensor],
+              gather: bool = True) -> list:
+        """A tiled ``v`` gathers (one all-gather) or is this rank's
+        :class:`Chunk`; the other statistics are whole on every rank. In
+        the sharded format each of those is placed as JAX places an
+        optimizer-state leaf: by ``zero1_dim`` of its own shape (at GPT-2's
+        widths every ``v_row`` and ``v_col`` is below the floor or odd, so
+        rank 0 writes it whole; at LLaMA's, the embedding's and the head's
+        ``v_col`` of 32000 is cut), as a :class:`Chunk` the rank still
+        keeps whole."""
+        u = self.update
+        full = self.full_shapes()
+        tiled = [i for i in range(len(values)) if self._tiled(name, i)]
+        out = list(values)
+        if gather:
+            self._gather_into(out, values, tiled)
+            return out
+        for i, v in enumerate(values):
+            if i in tiled:
+                start = [0] * len(full[i])
+                start[u.dims[i]] = u.rank * u.chunk_shapes[i][u.dims[i]]
+                out[i] = Chunk(full[i], start, v, u.world)
+                continue
+            dim = self.partitioner.zero1_dim(tuple(v.shape))
+            if dim is not None:
+                rows, cs = wirelib._scatter_parts(v, dim, u.world)
+                start = [0] * v.dim()
+                start[dim] = u.rank * cs[dim]
+                out[i] = Chunk(tuple(v.shape), start,
+                               rows[u.rank].reshape(cs), u.world, whole=True)
         return out
+
+    def stat_from_full(self, name: str, i: int, full) -> torch.Tensor:
+        if not self._tiled(name, i):
+            return interop.as_tensor(full)
+        u = self.update
+        if isinstance(full, Chunk):
+            return interop.as_tensor(full.data).reshape(u.chunk_shapes[i])
+        rows, _ = wirelib._scatter_parts(interop.as_tensor(full), u.dims[i],
+                                         u.world)
+        return rows[u.rank].reshape(u.chunk_shapes[i])
 
     def chunks(self, tensors: Sequence[torch.Tensor]) -> list:
         """A sharded leaf's tile as this rank's :class:`Chunk`: rows

@@ -67,7 +67,19 @@ eval batch: the JAX step's
 validation batches, and a resumed run draws what the uninterrupted run
 drew. The bits are torch's, not ``jax.random``'s.
 
-Pipelines and the sentinel metrics are not in this slice and raise.
+The sentinels (``sentinels=True``, the default, as in JAX; the training
+half of ``telemetry/sentinels.py``): ``grad_norm`` is the norm of the
+synced gradients (the mean's under accumulation), the one the skip
+predicate reads; ``nonfinite_grads`` is the predicate's own count (0 when
+that norm is finite, else counted; without the skip, counted in the
+norm's own reduction); ``param_norm`` is the norm of the parameters after
+the update (a skipped step reports the old ones). Under ZeRO-1 every rank
+holds the whole parameters again after the gather, so no collective is
+added; the gradient norm's and the count's partial sums ride the
+collective the step already runs. They stay on the device until a
+boundary fetch: the step adds no host sync.
+
+Pipelines are not in this slice and raise.
 """
 
 from __future__ import annotations
@@ -80,9 +92,6 @@ import torch
 from distributed_pytorch_example_tpu_torch.models.batchnorm import (
     global_batch_stats,
     running_stats,
-)
-from distributed_pytorch_example_tpu_torch.models.transformer import (
-    _not_in_slice,
 )
 from distributed_pytorch_example_tpu_torch.ops import collectives
 from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
@@ -200,7 +209,7 @@ def build_train_step(
     *,
     partitioner=None,
     grad_accum_steps: int = 1,
-    sentinels: bool = False,
+    sentinels: bool = True,
     skip_nonfinite: bool = True,
     wire: Optional[wirelib.WireConfig] = None,
     seed: int = 0,
@@ -208,12 +217,12 @@ def build_train_step(
     """One optimization step: ``step(state, batch) -> metrics``; updates
     ``state`` in place. ``wire`` defaults to the partitioner's, else
     float32 payloads; ``seed`` seeds the task's draws and the wire
-    quantizer's stochastic rounding (one generator per step and rank)."""
+    quantizer's stochastic rounding (one generator per step and rank);
+    ``sentinels`` adds ``grad_norm``, ``param_norm`` and
+    ``nonfinite_grads`` to the metrics."""
     if grad_accum_steps < 1:
         raise ValueError(
             f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
-    if sentinels:
-        raise _not_in_slice("the sentinel metrics")
     if wire is None:
         wire = getattr(partitioner, "wire", None) or wirelib.WireConfig()
     manual = partitioner is not None and (
@@ -230,9 +239,10 @@ def build_train_step(
                 distributed.process_index(), distributed.process_count())
         return updates[key]
 
-    def manual_sync(state: TrainState) -> torch.Tensor:
+    def manual_sync(state: TrainState):
         """ONE sync_grads call for every gradient collective; returns the
-        global gradient norm."""
+        global gradient norm and, when the skip will not count them, the
+        non-finite elements (None otherwise), reduced together."""
         update = sharded(state)
         world = distributed.process_count()
         generator = None
@@ -245,7 +255,9 @@ def build_train_step(
             update.local_grads(), update.dims, config=wire,
             generator=generator, scale=1.0 / (world * grad_accum_steps))
         update.set_grads(synced)
-        return update.global_norm()
+        if sentinels and not skip_nonfinite:
+            return update.norm_and_count()
+        return update.global_norm(), None
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, optimizer = state.model, state.optimizer
@@ -273,13 +285,15 @@ def build_train_step(
             flat = distributed.all_reduce_mean_(_flat(stats))
             _unflat(flat, stats)
         if manual:
-            norm = manual_sync(state)
+            norm, count = manual_sync(state)
         else:
             grads = [p.grad for p in optimizer.params if p.grad is not None]
             _all_reduce_mean_grads(grads)
             if grad_accum_steps > 1:
                 torch._foreach_div_(grads, float(grad_accum_steps))
-            norm = global_norm(grads) if grads else torch.zeros(())
+            norm = global_norm(grads)
+            count = (nonfinite_count(grads)
+                     if sentinels and not skip_nonfinite else None)
         bad, apply = torch.zeros((), device=norm.device), True
         if skip_nonfinite and not bool(torch.isfinite(norm)):
             bad = (sharded(state).nonfinite_count() if manual
@@ -290,6 +304,12 @@ def build_train_step(
         collectives.check_rings()  # a ring wait that timed out raises here
         if apply and optimizer.step(grad_norm=norm) and manual:
             sharded(state).replicate(wire)
+        if sentinels:
+            # a finite norm means no element is NaN or Inf: the skip's
+            # count (0 then) is the sentinel's
+            metrics = {**metrics, "grad_norm": norm,
+                       "param_norm": global_norm(model.parameters()),
+                       "nonfinite_grads": bad if count is None else count}
         if skip_nonfinite:
             metrics = {**metrics, "bad_step": (bad > 0).float()}
         state.step += 1

@@ -28,9 +28,6 @@ UNSERVED = {
     "moe_every": 2,
     "moe_top_k": None,
     "partition": "dp",
-    "profile_dir": None,
-    "profile_steps": "10,13",
-    "telemetry_every": 0,
     "shard_cache_mb": 0,
     "publish_dir": None,
 }
@@ -155,9 +152,22 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--no-skip-nonfinite", action="store_true",
                         help="apply the optimizer update even when gradients "
                         "are nonfinite")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="capture a torch.profiler trace (Chrome trace "
+                        "JSON, the card's kernels included) for the "
+                        "--profile-steps window into this directory")
+    parser.add_argument("--profile-steps", type=str, default="10,13",
+                        help="start,stop global-step window for --profile-dir")
+    parser.add_argument("--telemetry-every", type=int, default=0,
+                        help=">0: graft-scope writes a per-N-step record "
+                        "(step_time_ms, mfu_analytic, hbm_peak_bytes, "
+                        "grad_norm, skew) to the metrics JSONL; the "
+                        "Chrome trace-event file next to it is written "
+                        "either way; 0 keeps telemetry on at the epoch "
+                        "records")
     parser.add_argument("--no-telemetry", action="store_true",
-                        help="accepted for JAX parity; the port has no "
-                        "telemetry scope yet")
+                        help="disable graft-scope entirely (no spans, no "
+                        "step cost registry, no per-N-step records)")
     parser.add_argument("--checkpoint-format", type=str, default="auto",
                         choices=("auto", "gathered", "sharded"),
                         help="gathered: one all-gathered file (reference "

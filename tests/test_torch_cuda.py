@@ -1192,3 +1192,41 @@ def test_async_sharded_save_leaves_the_live_tensors_untouched(card,
     fresh, _ = _gpt2_state_on(card, 1, 0)
     ck.load_checkpoint(path, fresh)
     _assert_same_tree(_host_tree(fresh), before)
+
+
+def test_sentinels_and_flop_count_on_the_card_equal_the_cpu_step(card):
+    """A float32 GPT-2-tiny step (seq 128, head_dim 64: K1's float32
+    kernels) on the card against the same step on the CPU's plain path:
+    the sentinels within 1e-3 relative (the kernels sum in another order),
+    the counted FLOPs equal (attention counts by one formula, whichever
+    path runs), and K1 launched forward and backward on the card."""
+    from distributed_pytorch_example_tpu_torch.telemetry import CostRegistry
+
+    kw = dict(vocab_size=256, max_len=128, model_dim=128, num_layers=2,
+              num_heads=2, mlp_dim=256, logits_mode="hidden", seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 128)))
+    got = {}
+    for device in ("cpu", card):
+        model = GPT2(**kw, device=device)
+        state = TrainState(step=0, model=model, optimizer=make_optimizer(
+            model.parameters(), "adam", 1e-3))
+        costs = CostRegistry()
+        fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+        with costs.measure("train_step", device):
+            metrics = build_train_step(CausalLMTask())(
+                state, {"tokens": tokens.to(device)})
+        launches = (flash_attention_fwd.launches - fwd,
+                    flash_attention_bwd.launches - bwd)
+        got[str(device)] = ({k: float(metrics[k]) for k in
+                             ("grad_norm", "param_norm", "nonfinite_grads")},
+                            costs.get("train_step"), launches)
+    (cpu, cpu_cost, cpu_k1), (gpu, gpu_cost, gpu_k1) = (
+        got["cpu"], got[str(card)])
+    assert cpu_k1 == (0, 0) and gpu_k1 == (2, 2)
+    for key in ("grad_norm", "param_norm"):
+        assert abs(gpu[key] - cpu[key]) <= 1e-3 * cpu[key], key
+    assert gpu["nonfinite_grads"] == cpu["nonfinite_grads"] == 0.0
+    assert (gpu_cost["flops_per_step_per_device"]
+            == cpu_cost["flops_per_step_per_device"])
+    assert gpu_cost["hbm_peak_bytes"] > 0 and cpu_cost["hbm_peak_bytes"] is None

@@ -55,12 +55,17 @@ def test_port_and_chip_smoke_import_no_jax():
               ROOT / "scripts" / "ring_nvlink.py",
               ROOT / "scripts" / "bench_flash.py",
               ROOT / "scripts" / "k3_device_time.py",
+              ROOT / "scripts" / "step_peak_memory.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 10
-    # the decode side too: generate() and the speculative engine
+    # the decode side too: generate() and the speculative engine; and the
+    # telemetry modules and the profiler
     package = pathlib.Path(port.__file__).parent
     assert {package / "train" / "generate.py",
-            package / "serving" / "engine.py"} <= set(files)
+            package / "serving" / "engine.py",
+            package / "runtime" / "profiler.py"} <= set(files)
+    assert {package / "telemetry" / f"{name}.py" for name in (
+        "sentinels", "steptime", "cost", "scope", "overlap")} <= set(files)
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -127,10 +132,12 @@ def test_engine_refuses_out_of_slice_options():
 
 
 def test_train_cli_refuses_flags_outside_the_slice():
+    # --profile-dir and adafactor under --zero1 are served now; a bad
+    # --profile-steps window is refused as the JAX CLI refuses it
     for argv in (["--publish-dir", "/tmp/pub"], ["--mesh-tensor", "2"],
                  ["--moe-experts", "2"],
-                 ["--profile-dir", "/tmp/prof"],
-                 ["--optimizer", "adafactor", "--zero1"],
+                 ["--profile-dir", "/tmp/prof", "--profile-steps", "4,2"],
+                 ["--shard-cache-mb", "8"],
                  ["--model", "llama", "--dataset", "synthetic"],
                  ["--model", "gpt2", "--dataset", "synthetic"]):
         with pytest.raises(SystemExit):

@@ -400,11 +400,18 @@ def test_refused_options_raise(tmp_path):
                       checkpoint_dir=str(tmp_path))
     with pytest.raises(CheckpointCorruptError, match="no intact checkpoint"):
         trainer.load(str(pointer))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(ClassificationTask(), sentinels=True)
-    # adafactor's factored statistics span a whole leaf: no ZeRO-1 tiles
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedUpdate(model, make_optimizer(model, "adafactor"),
-                      data_parallel(2, dp_shard_opt_state=True), 0, 2)
+    # the sentinels are served (on by default, as in JAX)
+    net = SimpleNet(device="cpu", seed=0)
+    state = TrainState(step=0, model=net,
+                       optimizer=make_optimizer(net.parameters()))
+    metrics = build_train_step(ClassificationTask(), sentinels=True)(
+        state, {"x": torch.zeros(2, 784), "y": torch.zeros(2).long()})
+    assert {"grad_norm", "param_norm", "nonfinite_grads"} <= metrics.keys()
+    # adafactor under ZeRO-1 is served: its tiles know their whole leaves
+    update = ShardedUpdate(model, make_optimizer(model, "adafactor"),
+                           data_parallel(2, dp_shard_opt_state=True), 0, 2)
+    tiles = update.optimizer.optimizer.tiles
+    assert tiles and all(tile.count == 2 and tile.index == 0
+                         for tile in tiles.values())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPT2(**KW, pipe_axis="pipe", device="cpu")
