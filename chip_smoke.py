@@ -160,10 +160,30 @@ last line:
    a token, and the phase's time. The ``decode`` field of the K2 entry
    carries its launches in (a)-(c).
 
+15. telemetry — graft-scope on GPT-2 124M through ``Trainer.fit``
+   (records every 2 steps, the FLOP count against the analytic one), the
+   CLI with the profiler, phase 8's runs under ``measure_overlap`` and
+   adafactor under ZeRO-1 at world 2 (:func:`telemetry`).
+16. fsdp — GPT-2 124M at full width and depth, bf16, in phase 8's two
+   processes sharing the card, 8 rows each, 4 steps and one validation
+   batch through ``Trainer.fit``: first replicated, then under
+   ``fsdp(make_mesh(MeshSpec(data=1, fsdp=2)))`` (``--partition fsdp
+   --mesh-fsdp 2``: tiles between steps, K3a parameter gathers, K3b
+   bucketed gradient scatters, K1). The FSDP losses are held to the
+   replicated run's (``FSDP_LOSS_TOL``) and to phase 8 (i)'s
+   (``LOSS_TOL``); each rank's K1 launches must be 12 x 5 / 12 x 4 and
+   its K3a and K3b launches above 0; each run's ``hbm_peak_bytes`` must
+   lie within ``HBM_MARGIN`` of its steps 2+ peak. It prints each rank's
+   step median and range, ``hbm_peak_bytes`` under FSDP against the
+   replicated run, and the card's name and power limit; the FSDP run's
+   sharded checkpoint, loaded in one process on the card, must hold the
+   parameters the ranks gathered, bit for bit. The ``fsdp`` fields of the
+   K1 and K3 entries carry rank 0's launches.
+
 Each main path (serve, train, zero1, checkpoint, bert, vision, llama's
-train and serve, launch's world-1 epoch, and decode's runs) runs with
-every launch count set to 0 just before it and read just after; launch's
-ranks count in their own processes, from 0.
+train and serve, launch's world-1 epoch, decode's runs and fsdp's) runs
+with every launch count set to 0 just before it and read just after;
+launch's and fsdp's ranks count in their own processes, from 0.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1403,6 +1423,8 @@ ZERO1_RUNS = {
     # carries the psum buckets' int8 gathers and the bf16 gathers
     "zero1-int8": dict(zero1=True, wire="int8-block", param_gather="bf16"),
 }
+# rank 0's losses of each run, which phase 16 holds its FSDP run to
+ZERO1_LOSSES: dict = {}
 # first-step gradients of the two-process ZeRO-1 run against the
 # one-process replicated run on the same global batch, per leaf,
 # ||g - g_ref|| / ||g_ref||: both bf16 compute, but 2 x 8 rows against 16
@@ -1648,6 +1670,7 @@ def zero1_runs(torch, ref_losses, ref_path, ckpt_dir, world):
                         "in exact arithmetic)" if held
                         else "(int8 blocks: reported, not held)"))
         results[run] = lines
+        ZERO1_LOSSES[run] = lines[0]["losses"]
         if run == "zero1":
             zero1_checkpoint(torch, ckpt_dir, lines, world)
     plain = results["zero1"]
@@ -4269,6 +4292,283 @@ def telemetry(torch, smi_line, phase6):
     return fwd, bwd, k3a, k3b
 
 
+# ---------------------------------------------------------------------------
+# 16. fsdp: GPT-2 124M under --partition fsdp --mesh-fsdp 2
+# ---------------------------------------------------------------------------
+
+FSDP_WORLD, FSDP_STEPS = 2, 4
+# FSDP against the replicated run in the same two processes, per step: the
+# same bf16 forward on the same rows from the same (exactly gathered)
+# float32 parameters, and a two-rank float32 gradient sum is exact in any
+# order, so the gap is expected to be 0; 1e-5 is the resume tolerance
+FSDP_LOSS_TOL = RESUME_TOL
+# the cost record's residency against the card's steady-step peak in the
+# same run (phase 15's peaks 8.10 GiB at 16 rows in one process): the
+# figure is the state + batch + the step's growth; what the counter's peak
+# holds beyond that is the loader's next batch and the allocator's own
+HBM_MARGIN = 0.05
+
+
+def fsdp_worker(ckpt_dir: str) -> int:
+    """One rank of phase 16 (started by :func:`fsdp_phase` with REPLICAS /
+    PROCESS_ID / MASTER_ADDR / MASTER_PORT set): the replicated world-2
+    run, then the FSDP run (mesh data=1 x fsdp=2) of the same steps,
+    which saves its sharded checkpoint in ``ckpt_dir``; prints one
+    ``chip_smoke_fsdp`` JSON line."""
+    import torch
+    import torch.distributed
+
+    from distributed_pytorch_example_tpu_torch.data import (
+        DeviceLoader,
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.ops.collectives import (
+        ring_all_gather,
+        ring_reduce_scatter,
+    )
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from distributed_pytorch_example_tpu_torch.parallel import (
+        data_parallel,
+        fsdp,
+    )
+    from distributed_pytorch_example_tpu_torch.runtime import (
+        MeshSpec,
+        distributed,
+        make_mesh,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        Trainer,
+        make_optimizer,
+    )
+
+    distributed.initialize(device="cuda")
+    rank, world = distributed.process_index(), distributed.process_count()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_ds = SyntheticTokenDataset(TRAIN_STEPS * TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, seed=0)
+    val_ds = SyntheticTokenDataset(TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=1)
+    out = {"rank": rank, "world": world,
+           "backend": torch.distributed.get_backend()}
+    for run in ("replicated", "fsdp"):
+        model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                     device="cuda", seed=0)
+        part = (fsdp(make_mesh(MeshSpec(data=1, fsdp=world)))
+                if run == "fsdp" else data_parallel(world))
+        trainer = Trainer(model, CausalLMTask(),
+                          make_optimizer(model.parameters(), "adam", 1e-3),
+                          partitioner=part, log_every=FSDP_STEPS,
+                          checkpoint_dir=ckpt_dir if run == "fsdp" else None,
+                          checkpoint_format="sharded")
+        step_fn, losses, events, peaks = trainer.train_step, [], [], []
+
+        def timed(state, batch, step_fn=step_fn, losses=losses,
+                  events=events, peaks=peaks):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start.record()
+            metrics = step_fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            losses.append(float(metrics["loss"]))
+            events.append((start, end))
+            return metrics
+
+        trainer.train_step = timed
+        reset_counts()
+        trainer.fit(Take(DeviceLoader(train_ds, TRAIN_BATCH, device="cuda",
+                                      seed=0), FSDP_STEPS),
+                    DeviceLoader(val_ds, TRAIN_BATCH, device="cuda",
+                                 shuffle=False), epochs=1)
+        torch.cuda.synchronize()
+        counts = {"k1_fwd": flash_attention_fwd.launches,
+                  "k1_bwd": flash_attention_bwd.launches,
+                  "k3a": ring_all_gather.launches,
+                  "k3b": ring_reduce_scatter.launches}
+        rec = {"losses": losses,
+               "step_ms": [s.elapsed_time(e) for s, e in events],
+               "step_peaks": peaks, "launches": counts,
+               "hbm_peak_bytes": trainer.telemetry_summary["compiles"][
+                   "train_step"]["hbm_peak_bytes"]}
+        if run == "fsdp":
+            update = trainer._step.sharded(trainer.state)
+            rec["tiles"] = sum(t is not None for t in update.tiles)
+            rec["freed"] = all(p.untyped_storage().nbytes() == 0
+                               for p, t in zip(update.params, update.tiles)
+                               if t is not None)
+            rec["tile_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in update.tiles if t is not None)
+            # the gathered parameters (a collective), as the flax tree
+            rec["params_sha256"] = tree_digest(
+                trainer.layout().params(gather=True))
+        out[run] = rec
+        del trainer, model, part
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("chip_smoke_fsdp " + json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def tree_digest(tree) -> str:
+    """SHA-256 over a flax tree's leaves' bytes, in path order."""
+    digest = hashlib.sha256()
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], f"{prefix}/{key}")
+            return
+        digest.update(prefix.encode())
+        digest.update(node.detach().float().cpu().contiguous().view(-1)
+                      .numpy().view("uint8").tobytes())
+
+    walk(tree)
+    return digest.hexdigest()
+
+
+def fsdp_phase(torch, smi_line):
+    """Phase 16; returns rank 0's K1 forward / backward, K3a and K3b
+    launches in the FSDP run."""
+    t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        lines = fsdp_pair(ckpt_dir)
+        fsdp_check(torch, lines, ckpt_dir, smi_line)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    say("fsdp", f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    n = lines[0]["fsdp"]["launches"]
+    return n["k1_fwd"], n["k1_bwd"], n["k3a"], n["k3b"]
+
+
+def fsdp_pair(ckpt_dir):
+    port = free_port()
+    procs = []
+    for rank in range(FSDP_WORLD):
+        env = {**os.environ, "REPLICAS": str(FSDP_WORLD),
+               "PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fsdp-worker",
+             ckpt_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = {}
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        found = [line for line in out.splitlines()
+                 if line.startswith("chip_smoke_fsdp ")]
+        check(proc.returncode == 0 and found,
+              f"fsdp: rank {rank} exit {proc.returncode}: {out[-3000:]}")
+        lines[rank] = json.loads(found[-1].split(" ", 1)[1])
+    return lines
+
+
+def fsdp_check(torch, lines, ckpt_dir, smi_line):
+    from distributed_pytorch_example_tpu_torch import interop
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        Trainer,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train.checkpoint import (
+        LATEST_NAME,
+    )
+
+    say("fsdp", f"{FSDP_WORLD} processes on one card (backend "
+                f"{lines[0]['backend']}), {TRAIN_BATCH // FSDP_WORLD} rows "
+                f"each, {FSDP_STEPS} steps + 1 validation batch; {smi_line}")
+    phase8 = ZERO1_LOSSES.get("zero1")
+    for rank, r in lines.items():
+        got, rep = r["fsdp"], r["replicated"]
+        losses = got["losses"]
+        check(len(losses) == FSDP_STEPS and all(map(math.isfinite, losses)),
+              f"fsdp rank {rank}: losses {losses}")
+        gap = max(abs(a - b) for a, b in zip(losses, rep["losses"]))
+        check(gap <= FSDP_LOSS_TOL,
+              f"fsdp rank {rank}: losses {losses} vs the replicated world-2 "
+              f"run's {rep['losses']}: gap {gap:.3e} > {FSDP_LOSS_TOL}")
+        line = (f"rank {rank}: losses {[round(x, 5) for x in losses]} vs "
+                f"replicated world 2 {[round(x, 5) for x in rep['losses']]} "
+                f"(gap {gap:.3e}, tol {FSDP_LOSS_TOL})")
+        if phase8:
+            gap8 = max(abs(a - b) for a, b in zip(losses, phase8))
+            check(gap8 <= LOSS_TOL,
+                  f"fsdp rank {rank}: losses {losses} vs phase 8 (i)'s "
+                  f"{phase8}: gap {gap8:.3e} > {LOSS_TOL}")
+            line += f"; vs phase 8 (i) gap {gap8:.3e} (tol {LOSS_TOL})"
+        say("fsdp", line)
+        n = got["launches"]
+        check(n["k1_fwd"] == LAYERS * (FSDP_STEPS + 1)
+              and n["k1_bwd"] == LAYERS * FSDP_STEPS,
+              f"fsdp rank {rank}: K1 launches {n['k1_fwd']} / {n['k1_bwd']},"
+              f" want {LAYERS * (FSDP_STEPS + 1)} / {LAYERS * FSDP_STEPS}")
+        check(n["k3a"] > 0 and n["k3b"] > 0,
+              f"fsdp rank {rank}: K3a {n['k3a']}, K3b {n['k3b']}; want > 0")
+        check(got["tiles"] > 0 and got["freed"],
+              f"fsdp rank {rank}: {got['tiles']} tiles, parameters freed "
+              f"between steps: {got['freed']}")
+        for name, rec in (("fsdp", got), ("replicated", rep)):
+            ms = sorted(rec["step_ms"][1:])
+            hbm = rec["hbm_peak_bytes"]
+            steady = max(rec["step_peaks"][1:])
+            check(hbm is not None and abs(hbm - steady) <= HBM_MARGIN * steady,
+                  f"fsdp rank {rank} {name}: hbm_peak_bytes {hbm} vs the "
+                  f"steady steps' peak {steady} (margin {HBM_MARGIN})")
+            say("fsdp", f"rank {rank} {name}: step ms median "
+                        f"{ms[len(ms) // 2]:.2f} (steps 2+, {ms[0]:.2f}-"
+                        f"{ms[-1]:.2f}); hbm_peak_bytes {hbm} "
+                        f"({hbm / 2**30:.3f} GiB; steps 2+ peak "
+                        f"{steady / 2**30:.3f} GiB); launches K1 "
+                        f"{rec['launches']['k1_fwd']} / "
+                        f"{rec['launches']['k1_bwd']}, K3a "
+                        f"{rec['launches']['k3a']}, K3b "
+                        f"{rec['launches']['k3b']}")
+        say("fsdp", f"rank {rank}: hbm_peak_bytes FSDP "
+                    f"{got['hbm_peak_bytes'] / 2**30:.3f} GiB against "
+                    f"replicated {rep['hbm_peak_bytes'] / 2**30:.3f} GiB "
+                    f"({(rep['hbm_peak_bytes'] - got['hbm_peak_bytes']) / 2**30:+.3f}"
+                    f" GiB saved); {got['tiles']} tiles, "
+                    f"{got['tile_bytes'] / 2**30:.3f} GiB of parameter tiles")
+    digests = {r["fsdp"]["params_sha256"] for r in lines.values()}
+    check(len(digests) == 1, f"fsdp: ranks gathered different parameters")
+    # the sharded checkpoint, loaded in one process on the card
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
+                 seed=5)
+    trainer = Trainer(model, CausalLMTask(),
+                      make_optimizer(model.parameters(), "adam", 1e-3),
+                      telemetry=False)
+    t0 = time.perf_counter()
+    epoch, _ = trainer.load(os.path.join(ckpt_dir, LATEST_NAME))
+    load_s = time.perf_counter() - t0
+    got = tree_digest(interop.params_to_flax(model))
+    check(epoch == 1 and got in digests,
+          f"fsdp: the world-2 FSDP checkpoint loaded at world 1 (epoch "
+          f"{epoch}) holds other parameters than the gathered ones")
+    say("fsdp", f"the sharded FSDP checkpoint loaded at world 1 in "
+                f"{load_s:.2f} s: parameters bit-equal to the gathered ones "
+                f"(sha256 {got[:16]})")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def free_port():
     import socket
 
@@ -4339,6 +4639,11 @@ def main() -> int:
             entry["telemetry"] = {"launches": n,
                                   "run": "phase 15 (c), rank 0's profiled "
                                          "windows"}
+        phase = "fsdp"
+        for entry, n in zip((k1_fwd, k1_bwd, k3a, k3b),
+                            fsdp_phase(torch, smi_line)):
+            entry["fsdp"] = {"launches": n, "run": "phase 16, rank 0 of "
+                                                   "the FSDP run"}
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
@@ -4359,6 +4664,8 @@ if __name__ == "__main__":
         sys.exit(llama_lamb_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--telemetry-worker"]:
         sys.exit(telemetry_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--fsdp-worker"]:
+        sys.exit(fsdp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--launch-worker"]:
         sys.exit(launch_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

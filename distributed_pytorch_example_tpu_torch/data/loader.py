@@ -4,7 +4,11 @@ The reference's ``DataLoader(pin_memory=...)`` + ``DistributedSampler``
 pair, with the JAX package's batch contract:
 
 - the dataset is sharded by process with :class:`ShardedSampler`; each
-  process assembles its local ``global_batch_size / num_shards`` rows;
+  process assembles its local ``global_batch_size / num_shards`` rows.
+  Under a (data, fsdp) mesh (``runtime/mesh.py``) the process rank is
+  the flat rank over (data, fsdp), row-major, so the batch splits over
+  both axes as JAX's ``batch_spec`` ``P(("data", "fsdp"))`` splits it;
+  at ``fsdp = 1`` that is the data rank, as before;
 - the final partial batch is padded by wrapping (``drop_last=True`` drops
   it), so every step has the same shape;
 - the batches and their order equal the JAX ``DeviceLoader``'s, element

@@ -88,6 +88,13 @@ class FlaxLeaf:
         """This parameter (or its gradient) in the JAX layout: a view."""
         return t if self.perm is None else t.permute(self.perm)
 
+    def jax_shape(self, shape) -> Tuple[int, ...]:
+        """The JAX layout's shape of a parameter of torch ``shape`` (no
+        tensor needed: an FSDP parameter between steps has no storage)."""
+        shape = tuple(int(s) for s in shape)
+        return shape if self.perm is None else tuple(shape[i]
+                                                     for i in self.perm)
+
     def from_jax(self, t: torch.Tensor) -> torch.Tensor:
         """A leaf in the JAX layout as this parameter's layout: a view."""
         if self.perm is None:

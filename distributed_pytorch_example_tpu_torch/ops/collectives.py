@@ -56,7 +56,7 @@ of ``runtime/distributed.py`` (the step cost record).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -168,24 +168,26 @@ class PeerRing:
 
     @classmethod
     def over_process_group(cls, device,
-                           timeout_s: float = DEFAULT_TIMEOUT_S) -> "PeerRing":
-        """This process's rank of a ring over the default process group:
-        a collective (every rank calls it), which swaps CUDA IPC handles
-        with ``dist.all_gather_object``."""
+                           timeout_s: float = DEFAULT_TIMEOUT_S,
+                           group=None) -> "PeerRing":
+        """This process's rank of a ring over ``group`` (default: every
+        process): a collective (every rank of the group calls it), which
+        swaps CUDA IPC handles with ``dist.all_gather_object``."""
         import torch.distributed as dist
 
         device = torch.device(device)
         device = torch.device("cuda", device.index
                               if device.index is not None
                               else torch.cuda.current_device())
-        rank, world = distributed.process_index(), distributed.process_count()
+        rank = distributed.process_index(group)
+        world = distributed.process_count(group)
         lib = _lib()
         own = _alloc_workspace(device)
         handle = ctypes.create_string_buffer(lib.dpx_ipc_handle_bytes())
         _cuda_call("cudaIpcGetMemHandle",
                    lib.dpx_ipc_get_handle(ctypes.c_void_p(own), handle))
         handles: List[Optional[bytes]] = [None] * world
-        dist.all_gather_object(handles, handle.raw)
+        dist.all_gather_object(handles, handle.raw, group=group)
         ptrs, opened = [], []
         for r, h in enumerate(handles):
             if r == rank:
@@ -222,20 +224,22 @@ class PeerRing:
         self._opened, self._own = [], None
 
 
-_process_rings: Dict[Tuple[int, int, int], PeerRing] = {}
+_process_rings: Dict[tuple, PeerRing] = {}
 
 
-def process_ring(device) -> PeerRing:
-    """The ring over the default process group on ``device``, built at
-    its first use (a collective: every rank reaches it together, since
-    every rank issues the same collectives)."""
+def process_ring(device, group=None) -> PeerRing:
+    """The ring over ``group`` (default: every process) on ``device``,
+    built at its first use (a collective: every rank of the group reaches
+    it together, since every rank issues the same collectives)."""
     device = torch.device(device)
     key = (device.index if device.index is not None
            else torch.cuda.current_device(),
-           distributed.process_index(), distributed.process_count())
+           distributed.process_index(), distributed.process_count(),
+           None if group is None else id(group))
     ring = _process_rings.get(key)
     if ring is None:
-        ring = _process_rings[key] = PeerRing.over_process_group(device)
+        ring = _process_rings[key] = PeerRing.over_process_group(
+            device, group=group)
     return ring
 
 
@@ -255,19 +259,20 @@ def _payload(x: torch.Tensor, ring: PeerRing, what: str) -> torch.Tensor:
 
 @scope_marker("ring_all_gather")
 def ring_all_gather(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
-                    stream: int = 0) -> torch.Tensor:
+                    stream: int = 0, group=None) -> torch.Tensor:
     """Tiled axis-0 all-gather: ``(n0, ...)`` on each rank ->
     ``(world * n0, ...)``, rank r's rows at ``r * n0``. The contract of
     ``lax.all_gather(x, axis, axis=0, tiled=True)``.
 
     ``stream`` picks the buffer and flag set (the TPU kernel's
     collective id ``2 * stream``): collectives in flight at once need
-    distinct ids (modulo :data:`MAX_STREAMS`). Launches on the current
-    CUDA stream without synchronising.
+    distinct ids (modulo :data:`MAX_STREAMS`). ``group`` (without
+    ``ring``) picks the process ring of one mesh axis. Launches on the
+    current CUDA stream without synchronising.
     """
     if not x.is_cuda:
-        return distributed.all_gather_tiled(x)
-    ring = ring if ring is not None else process_ring(x.device)
+        return distributed.all_gather_tiled(x, group=group)
+    ring = ring if ring is not None else process_ring(x.device, group)
     x = _payload(x, ring, "ring_all_gather")
     if ring.world < 2 or half_rows(x.numel()) is None:
         raise ValueError(
@@ -294,18 +299,19 @@ ring_all_gather.launches = 0
 
 @scope_marker("ring_reduce_scatter")
 def ring_reduce_scatter(x: torch.Tensor, ring: Optional[PeerRing] = None, *,
-                        stream: int = 0) -> torch.Tensor:
+                        stream: int = 0, group=None) -> torch.Tensor:
     """Tiled reduce-scatter over axis 0: ``(world * c, ...)`` on each
     rank -> this rank's ``(c, ...)`` tile of the sum over ranks, summed
     in float32 in the TPU ring's order (:func:`ring_reduce_scatter_ring_order`)
     and cast back to ``x.dtype`` (float32 or bfloat16). The contract of
     ``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``;
-    ``stream`` picks the set of odd collective id ``2 * stream + 1``.
-    Launches on the current CUDA stream without synchronising.
+    ``stream`` picks the set of odd collective id ``2 * stream + 1``;
+    ``group`` as in :func:`ring_all_gather`. Launches on the current CUDA
+    stream without synchronising.
     """
     if not x.is_cuda:
-        return distributed.reduce_scatter_tiled(x)
-    ring = ring if ring is not None else process_ring(x.device)
+        return distributed.reduce_scatter_tiled(x, group=group)
+    ring = ring if ring is not None else process_ring(x.device, group)
     x = _payload(x, ring, "ring_reduce_scatter")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"ring_reduce_scatter: dtype {x.dtype} not in "

@@ -217,13 +217,14 @@ def _unscatter(rows: torch.Tensor, dim: int, chunk_shape) -> torch.Tensor:
 @scope_marker("wire_psum_scatter")
 def wire_psum_scatter(x: torch.Tensor, *, scatter_dimension: int,
                       config: Optional[WireConfig] = None,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
-    """Tiled reduce-scatter of ``x`` along ``scatter_dimension``, with
-    optional int8 payloads (quantize each destination chunk, all-to-all,
-    dequantize, sum in float32)."""
+                      generator: Optional[torch.Generator] = None,
+                      group=None) -> torch.Tensor:
+    """Tiled reduce-scatter of ``x`` along ``scatter_dimension`` over
+    ``group`` (default: every process), with optional int8 payloads
+    (quantize each destination chunk, all-to-all, dequantize, sum in
+    float32)."""
     config = config or WireConfig()
-    d = distributed.process_count()
+    d = distributed.process_count(group)
     dim = scatter_dimension
     if x.shape[dim] % d:
         raise ValueError(
@@ -232,14 +233,15 @@ def wire_psum_scatter(x: torch.Tensor, *, scatter_dimension: int,
         )
     rows, chunk_shape = _scatter_parts(x, dim, d)
     if not config.compresses(x.numel()):
-        return distributed.reduce_scatter_tiled(rows).reshape(chunk_shape)
+        return distributed.reduce_scatter_tiled(rows, group).reshape(
+            chunk_shape)
     padded, _ = _pad_rows(rows, config.block_size)
     q, scales = _quantize_rows(
         padded, config.block_size,
         generator if config.stochastic_rounding else None,
     )
-    q = distributed.all_to_all_rows(q)
-    scales = distributed.all_to_all_rows(scales)
+    q = distributed.all_to_all_rows(q, group)
+    scales = distributed.all_to_all_rows(scales, group)
     got = _dequantize_rows(q, scales, rows.shape[1])  # one row per source
     return got.sum(dim=0).reshape(chunk_shape)
 
@@ -247,21 +249,22 @@ def wire_psum_scatter(x: torch.Tensor, *, scatter_dimension: int,
 @scope_marker("wire_all_gather")
 def wire_all_gather(x: torch.Tensor, *, gather_dimension: int = 0,
                     config: Optional[WireConfig] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-    """Tiled all-gather along ``gather_dimension`` with optional int8
-    payloads: quantize the local shard once, gather values and scales
-    (through K3a where eligible), dequantize every rank's part."""
+                    generator: Optional[torch.Generator] = None,
+                    group=None) -> torch.Tensor:
+    """Tiled all-gather along ``gather_dimension`` over ``group`` with
+    optional int8 payloads: quantize the local shard once, gather values
+    and scales (through K3a where eligible), dequantize every rank's
+    part."""
     config = config or WireConfig()
     if not config.compresses(x.numel()):
-        return _gather(x, gather_dimension, config)
+        return _gather(x, gather_dimension, config, group=group)
     rows, _ = _pad_rows(x.reshape(1, -1), config.block_size)
     q, scales = _quantize_rows(
         rows, config.block_size,
         generator if config.stochastic_rounding else None,
     )
-    q = _gather(q, 0, config)            # (d, B, block) int8
-    scales = _gather(scales, 0, config)  # (d, B, 1) bf16
+    q = _gather(q, 0, config, group=group)            # (d, B, block) int8
+    scales = _gather(scales, 0, config, group=group)  # (d, B, 1) bf16
     got = _dequantize_rows(q, scales, x.numel(), x.dtype)
     parts = got.reshape((got.shape[0],) + tuple(x.shape))
     return torch.cat(list(parts.unbind(0)), dim=gather_dimension)
@@ -269,47 +272,51 @@ def wire_all_gather(x: torch.Tensor, *, gather_dimension: int = 0,
 
 @scope_marker("wire_psum")
 def wire_psum(x: torch.Tensor, *, config: Optional[WireConfig] = None,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """All-reduce sum with optional int8 payloads: the quantized
-    reduce-scatter of the flattened leaf (padded to a rank multiple),
-    then a quantized all-gather of the reduced chunk."""
+              generator: Optional[torch.Generator] = None,
+              group=None) -> torch.Tensor:
+    """All-reduce sum over ``group`` with optional int8 payloads: the
+    quantized reduce-scatter of the flattened leaf (padded to a rank
+    multiple), then a quantized all-gather of the reduced chunk."""
     config = config or WireConfig()
     if not config.compresses(x.numel()):
-        return distributed.all_reduce_sum_(x.clone())
+        return distributed.all_reduce_sum_(x.clone(), group)
     gen = generator if config.stochastic_rounding else None
-    full = _quantized_psum_flat(x.reshape(-1), config, gen, stream=0)
+    full = _quantized_psum_flat(x.reshape(-1), config, gen, stream=0,
+                                group=group)
     return full.reshape(x.shape).to(x.dtype)
 
 
 def _quantized_psum_flat(flat: torch.Tensor, config: WireConfig, generator,
-                         stream: int) -> torch.Tensor:
-    d = distributed.process_count()
+                         stream: int, group=None) -> torch.Tensor:
+    d = distributed.process_count(group)
     n = flat.numel()
     pad = (-n) % d
     padded = torch.nn.functional.pad(flat, (0, pad)) if pad else flat
     chunks = padded.reshape(d, -1)  # one destination chunk per rank
     rows, _ = _pad_rows(chunks, config.block_size)
     q, scales = _quantize_rows(rows, config.block_size, generator)
-    q = distributed.all_to_all_rows(q)
-    scales = distributed.all_to_all_rows(scales)
+    q = distributed.all_to_all_rows(q, group)
+    scales = distributed.all_to_all_rows(scales, group)
     reduced = _dequantize_rows(q, scales, chunks.shape[1]).sum(dim=0)
     rows2, _ = _pad_rows(reduced[None], config.block_size)
     q2, scales2 = _quantize_rows(rows2, config.block_size, generator)
-    q2 = _gather(q2, 0, config, stream=stream)
-    scales2 = _gather(scales2, 0, config, stream=stream)
+    q2 = _gather(q2, 0, config, stream=stream, group=group)
+    scales2 = _gather(scales2, 0, config, stream=stream, group=group)
     full = _dequantize_rows(q2, scales2, chunks.shape[1]).reshape(-1)
     return full[:n] if pad else full
 
 
 def _gather(x: torch.Tensor, gather_dimension: int, config: WireConfig,
-            stream: int = 0) -> torch.Tensor:
-    """Tiled all-gather: K3a where it takes the payload (``ring="auto"``,
-    dim 0, on the card, more than one rank, two 128-element halves), the
-    library gather otherwise. ``stream`` picks the kernel's buffer set."""
+            stream: int = 0, group=None) -> torch.Tensor:
+    """Tiled all-gather over ``group``: K3a where it takes the payload
+    (``ring="auto"``, dim 0, on the card, more than one rank, two
+    128-element halves), the library gather otherwise. ``stream`` picks
+    the kernel's buffer set."""
     if (config.ring != "off" and gather_dimension == 0
-            and collectives.ring_eligible(x, distributed.process_count())):
-        return collectives.ring_all_gather(x, stream=stream)
-    return distributed.all_gather_tiled(x, dim=gather_dimension)
+            and collectives.ring_eligible(x,
+                                          distributed.process_count(group))):
+        return collectives.ring_all_gather(x, stream=stream, group=group)
+    return distributed.all_gather_tiled(x, dim=gather_dimension, group=group)
 
 
 # -- bucketed gradient sync -------------------------------------------------
@@ -413,18 +420,21 @@ def plan_buckets(dims: Sequence[Optional[int]], grads: Sequence,
 
 
 def _reduce_scatter_rows(buf: torch.Tensor, config: WireConfig,
-                         stream: int) -> torch.Tensor:
+                         stream: int, group=None) -> torch.Tensor:
     """Fused fp32 reduce-scatter of a (d, n/d) destination-major buffer
-    -> this rank's reduced (n/d,) row: K3b where it takes the chunk (one
-    buffer set per ``stream``), the library reduce-scatter otherwise."""
+    over ``group`` -> this rank's reduced (n/d,) row: K3b where it takes
+    the chunk (one buffer set per ``stream``), the library reduce-scatter
+    otherwise."""
     if (config.ring != "off" and buf.is_cuda and buf.shape[0] > 1
             and collectives.half_rows(buf.shape[1]) is not None):
-        return collectives.ring_reduce_scatter(buf, stream=stream).reshape(-1)
-    return distributed.reduce_scatter_tiled(buf).reshape(-1)
+        return collectives.ring_reduce_scatter(buf, stream=stream,
+                                               group=group).reshape(-1)
+    return distributed.reduce_scatter_tiled(buf, group).reshape(-1)
 
 
 def _bucket_scatter(out, leaves, dims, bucket: Bucket, d: int,
-                    config: WireConfig, generator, scale: float) -> None:
+                    config: WireConfig, generator, scale: float,
+                    group=None) -> None:
     """One fused scatter bucket: every leaf to destination-major rows,
     joined along the row, ONE collective, split back per leaf. Blocks of
     a quantized bucket span leaf joins."""
@@ -441,11 +451,12 @@ def _bucket_scatter(out, leaves, dims, bucket: Bucket, d: int,
             rows, config.block_size,
             generator if config.stochastic_rounding else None,
         )
-        q = distributed.all_to_all_rows(q)
-        scales = distributed.all_to_all_rows(scales)
+        q = distributed.all_to_all_rows(q, group)
+        scales = distributed.all_to_all_rows(scales, group)
         red = _dequantize_rows(q, scales, nb).sum(dim=0)
     else:
-        red = _reduce_scatter_rows(buf.contiguous(), config, bucket.index)
+        red = _reduce_scatter_rows(buf.contiguous(), config, bucket.index,
+                                   group)
     red = red * scale
     offset = 0
     for i, cs in zip(bucket.leaves, chunk_shapes):
@@ -455,7 +466,7 @@ def _bucket_scatter(out, leaves, dims, bucket: Bucket, d: int,
 
 
 def _bucket_psum(out, leaves, bucket: Bucket, config: WireConfig,
-                 generator, scale: float) -> None:
+                 generator, scale: float, group=None) -> None:
     """One fused all-reduce bucket over the unsharded leaves."""
     flats = [leaves[i].reshape(-1) for i in bucket.leaves]
     flat = flats[0].clone() if len(flats) == 1 else torch.cat(flats)
@@ -463,10 +474,10 @@ def _bucket_psum(out, leaves, bucket: Bucket, config: WireConfig,
         full = _quantized_psum_flat(
             flat, config,
             generator if config.stochastic_rounding else None,
-            stream=bucket.index,
+            stream=bucket.index, group=group,
         )
     else:
-        full = distributed.all_reduce_sum_(flat)
+        full = distributed.all_reduce_sum_(flat, group)
     full = full * scale
     offset = 0
     for i in bucket.leaves:
@@ -479,15 +490,17 @@ def sync_grads(grads: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
                *, config: Optional[WireConfig] = None,
                generator: Optional[torch.Generator] = None,
                scale: float = 1.0,
-               plan: Optional[BucketPlan] = None) -> List[torch.Tensor]:
-    """The gradient-sync dispatcher of the ZeRO-1 / wire step.
+               plan: Optional[BucketPlan] = None,
+               group=None) -> List[torch.Tensor]:
+    """The gradient-sync dispatcher of the ZeRO-1 / FSDP / wire step.
 
     ``grads`` are this rank's local float32 gradients in the JAX layout
-    and order; leaves with a ZeRO-1 dim reduce-scatter to this rank's
-    tile, the rest all-reduce, every payload per ``config``, and the
-    results are scaled by ``scale`` (the global-mean factor). With
-    ``bucket_bytes == 0`` one collective per leaf; otherwise
-    :func:`plan_buckets`'s fused buckets, in issue order.
+    and order; leaves with a dim (ZeRO-1's or FSDP's) reduce-scatter to
+    this rank's tile, the rest all-reduce, over ``group`` (default: every
+    process), every payload per ``config``, and the results are scaled by
+    ``scale`` (the global-mean factor). With ``bucket_bytes == 0`` one
+    collective per leaf; otherwise :func:`plan_buckets`'s fused buckets,
+    in issue order.
     """
     config = config or WireConfig()
     gen = generator if config.stochastic_rounding else None
@@ -496,12 +509,13 @@ def sync_grads(grads: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
         for dim, g in zip(dims, grads):
             if dim is not None:
                 g = wire_psum_scatter(g, scatter_dimension=dim,
-                                      config=config, generator=gen)
+                                      config=config, generator=gen,
+                                      group=group)
             else:
-                g = wire_psum(g, config=config, generator=gen)
+                g = wire_psum(g, config=config, generator=gen, group=group)
             synced.append(g * scale)
         return synced
-    d = distributed.process_count()
+    d = distributed.process_count(group)
     if plan is None:
         plan = plan_buckets(dims, grads, config, d)
     out: list = list(grads)  # zero-size leaves pass through unsynced
@@ -509,9 +523,9 @@ def sync_grads(grads: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
         with torch.profiler.record_function(f"wire_bucket{bucket.index}"):
             if bucket.kind == "scatter":
                 _bucket_scatter(out, grads, dims, bucket, d, config, gen,
-                                scale)
+                                scale, group)
             else:
-                _bucket_psum(out, grads, bucket, config, gen, scale)
+                _bucket_psum(out, grads, bucket, config, gen, scale, group)
     return out
 
 
@@ -558,11 +572,8 @@ def grad_wire_report(shapes, partitioner,
     ``shapes`` maps the JAX param paths to their shapes."""
     if config is None:
         config = getattr(partitioner, "wire", None) or WireConfig()
-    d = int(partitioner.mesh_shape.get(partitioner.grad_sync_axis(), 1))
-    if partitioner.dp_shard_opt_state:
-        dims = partitioner.zero1_dims(shapes)
-    else:
-        dims = {path: None for path in shapes}
+    d = int(partitioner.mesh.shape[partitioner.grad_sync_axis()])
+    dims = partitioner.sync_dims(shapes)
     fp32_bytes = 0.0
     wire_bytes = 0.0
     ring_factor = (d - 1) / d if d > 1 else 0.0

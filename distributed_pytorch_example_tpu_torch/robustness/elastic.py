@@ -4,12 +4,13 @@ newest save a restore landed.
 
 Every save (both formats) carries a format-3 ``mesh_manifest``: the mesh axes and their
 sizes, the per-leaf partition specs and the ZeRO-1 scatter dims. The
-port's one axis is ``data`` (one rank per process); its ZeRO-1 overlay
-shards an ``opt_state`` leaf on the dim ``Partitioner.zero1_dim`` picks,
-everything else is replicated. :func:`mesh_manifest` writes, for the same
-world and mode, the stamp the JAX package writes: a replicated leaf's spec
-is ``[]``, a sharded leaf's lists ``"data"`` at its dim and ``None``
-elsewhere. Axes are compared canonically, size-1 axes dropped, so the
+port's batch axes are ``data`` and, under FSDP, ``fsdp`` (one rank per
+process); its ZeRO-1 overlay shards an ``opt_state`` leaf on the dim
+``Partitioner.zero1_dim`` picks, FSDP every leaf on the dim
+``shard_largest_axis`` picks, everything else is replicated.
+:func:`mesh_manifest` writes, for the same world and mode, the stamp the
+JAX package writes: a replicated leaf's spec is ``[]``, a sharded leaf's
+lists its axis at its dim and ``None`` elsewhere. Axes are compared canonically, size-1 axes dropped, so the
 JAX package's ``data=N, fsdp=1, ...`` is the port's ``data=N``.
 
 :func:`validate_resume` gates a restore on the stamp: an unstamped
@@ -82,28 +83,26 @@ def tree_leaves(tree, prefix: str = ""):
 def mesh_manifest(state_tree: Mapping, partitioner=None,
                   world: int = 1) -> dict:
     """The format-3 stamp of a train-state tree (``train_state_to_flax``'s
-    form): axes ``{"data": world}``, every leaf's spec, and the ZeRO-1
-    scatter dim of each sharded ``opt_state`` leaf. ``partitioner`` (a
-    ``parallel.api.Partitioner``) gives the world and the ZeRO-1 dims;
-    without one, every leaf is replicated over ``world`` ranks."""
-    if partitioner is not None:
-        world = partitioner.world
+    form): the batch axes (``{"data": world}``, with ``fsdp`` under
+    FSDP), every leaf's spec, and the ZeRO-1 scatter dim of each sharded
+    ``opt_state`` leaf. ``partitioner`` (a ``parallel.api.Partitioner``)
+    gives the axes, the specs and the ZeRO-1 dims
+    (``Partitioner.manifest_spec``); without one, every leaf is
+    replicated over ``world`` ranks."""
+    axes = ({"data": int(world)} if partitioner is None
+            else {k: int(v) for k, v in partitioner.mesh_shape.items()})
     specs: Dict[str, List[SpecEntry]] = {}
     zero1_dims: Dict[str, int] = {}
     for path, leaf in tree_leaves(state_tree):
         shape = tuple(getattr(leaf, "shape", ()))
-        dim = None
-        if partitioner is not None and path.startswith("opt_state/"):
-            dim = partitioner.zero1_dim(shape)
-        if dim is None:
-            specs[path] = []
-        else:
-            specs[path] = ["data" if d == dim else None
-                           for d in range(len(shape))]
+        entries, dim = ([], None) if partitioner is None else (
+            partitioner.manifest_spec(path, shape))
+        specs[path] = entries
+        if dim is not None:
             zero1_dims[path] = dim
     return {
         "format": MANIFEST_FORMAT,
-        "axes": {"data": int(world)},
+        "axes": axes,
         "specs": specs,
         "zero1_dims": zero1_dims,
     }

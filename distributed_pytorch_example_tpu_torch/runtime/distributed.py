@@ -33,7 +33,9 @@ error propagates.
 
 The library collectives the port needs (:func:`all_reduce_sum_`,
 :func:`all_gather_tiled`, :func:`reduce_scatter_tiled`,
-:func:`all_to_all_rows`) take CUDA or CPU tensors on either backend. Gloo
+:func:`all_to_all_rows`) take CUDA or CPU tensors on either backend, over
+the world or over the process group of one mesh axis (``group``,
+``runtime/mesh.py``). Gloo
 has no reduce-scatter, so there it is an all-reduce followed by this
 rank's tile (the numbers of ``psum_scatter``). Gloo's support for CUDA
 tensors differs from one collective to the next, so under gloo every
@@ -314,13 +316,17 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def process_index() -> int:
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-
-
-def process_count() -> int:
+def process_index(group=None) -> int:
+    """This process's rank in ``group`` (default: the world)."""
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
+        return dist.get_rank(group)
+    return 0
+
+
+def process_count(group=None) -> int:
+    """The ranks of ``group`` (default: the world)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(group)
     return 1
 
 
@@ -367,9 +373,9 @@ def all_reduce_mean_(tensor: torch.Tensor) -> torch.Tensor:
     return tensor
 
 
-def _staged(x: torch.Tensor) -> bool:
+def _staged(x: torch.Tensor, group=None) -> bool:
     """Whether ``x`` goes through the host: a CUDA tensor under gloo."""
-    return x.is_cuda and dist.get_backend() == "gloo"
+    return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -378,74 +384,75 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
 
 
-def all_reduce_sum_(tensor: torch.Tensor) -> torch.Tensor:
-    """In-place cross-process sum (``psum``); the identity for one
-    process."""
-    if process_count() == 1:
+def all_reduce_sum_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum over the processes of ``group`` (default: the world;
+    ``psum``); the identity for one process."""
+    if process_count(group) == 1:
         return tensor
     note_collective("all-reduce", tensor)
-    if _staged(tensor):
+    if _staged(tensor, group):
         host = tensor.cpu()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM)
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
         tensor.copy_(host)
     else:
-        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
 
 
-def all_gather_tiled(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def all_gather_tiled(x: torch.Tensor, dim: int = 0,
+                     group=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order
-    (``lax.all_gather(..., axis=dim, tiled=True)``)."""
-    world = process_count()
+    (``lax.all_gather(..., axis=dim, tiled=True)``) over ``group``."""
+    world = process_count(group)
     if world == 1:
         return x
     src = _bits(x.contiguous())
-    if _staged(src):
+    if _staged(src, group):
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(world)]
-    dist.all_gather(parts, src)
+    dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim).to(x.device)
     note_collective("all-gather", out)
     return out.view(x.dtype) if out.dtype != x.dtype else out
 
 
-def reduce_scatter_tiled(x: torch.Tensor) -> torch.Tensor:
-    """This rank's tile of the cross-process sum of ``x`` along axis 0
+def reduce_scatter_tiled(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's tile of the sum of ``x`` along axis 0 over ``group``
     (``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``)."""
-    world = process_count()
+    world = process_count(group)
     if world == 1:
         return x
     if x.shape[0] % world:
         raise ValueError(f"leading dim of {tuple(x.shape)} does not split "
                          f"over {world} processes")
     chunk = x.shape[0] // world
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         out = torch.empty((chunk,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         note_collective("reduce-scatter", out)
-        dist.reduce_scatter_tensor(out, x.contiguous())
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
         return out
     # gloo has no reduce-scatter: all-reduce, then this rank's tile (the
     # tally counts what the program asked for: one reduce-scatter)
     with count_collectives():
-        total = all_reduce_sum_(x.clone())
-    rank = process_index()
+        total = all_reduce_sum_(x.clone(), group)
+    rank = process_index(group)
     out = total[rank * chunk:(rank + 1) * chunk].clone()
     note_collective("reduce-scatter", out)
     return out
 
 
-def all_to_all_rows(x: torch.Tensor) -> torch.Tensor:
-    """Row j of ``x`` (shape ``(world, ...)``) goes to rank j; row i of
-    the result came from rank i (``lax.all_to_all(split_axis=0,
+def all_to_all_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Row j of ``x`` (shape ``(world, ...)``) goes to rank j of ``group``;
+    row i of the result came from rank i (``lax.all_to_all(split_axis=0,
     concat_axis=0)``)."""
-    if process_count() == 1:
+    if process_count(group) == 1:
         return x
     src = _bits(x.contiguous())
-    if _staged(src):
+    if _staged(src, group):
         src = src.cpu()
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src)
+    dist.all_to_all_single(out, src, group=group)
     note_collective("all-to-all", out)
     out = out.to(x.device)
     return out.view(x.dtype) if out.dtype != x.dtype else out

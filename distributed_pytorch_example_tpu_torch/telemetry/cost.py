@@ -13,8 +13,19 @@ step instead, the first train step and the first eval step of a run
   formula of ``ops/attention.py`` whichever implementation ran (K1 is a
   ctypes launch the counter cannot see, and the plain path would count
   at the full S x S). So the count is the same on the CPU and the card;
-- ``hbm_peak_bytes``: ``torch.cuda.max_memory_allocated()`` over the
-  step, reset before it; None on the CPU;
+- ``hbm_peak_bytes``: the step's residency on this rank, what JAX's
+  field counts (there the compiler's estimate for the compiled step:
+  arguments + outputs + temporaries - aliased bytes, the whole train
+  state included): the bytes of the train state and the batch resident on
+  the device when the step starts (``resident``: the parameters and
+  buffers, the optimizer's parameters, i.e. the ZeRO-1 / FSDP tiles, and
+  its state), plus the step's growth, ``max_memory_allocated`` during it
+  minus ``memory_allocated`` at its start. So a tensor alive beside the
+  state (another run's, an earlier phase's) does not count. The Trainer
+  takes it on the run's second train step (:meth:`CostRegistry.
+  measure_memory`), the first whose optimizer state exists: torch makes
+  Adam's moments at the end of the first. None on the CPU (no counter);
+  the counter is injectable (``memory``);
 - ``collectives``: ``{kind: {count, bytes}}`` of the collectives the
   step ran on this process, keyed as the JAX package keys a compiled
   program's (``runtime/distributed.py`` ``count_collectives``).
@@ -26,7 +37,7 @@ the card's dense bf16 peak (:func:`peak_bf16_flops`), as JAX does.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
@@ -58,20 +69,87 @@ def peak_bf16_flops(device) -> Optional[float]:
     return None
 
 
+class CudaMemory:
+    """The card's allocator counters, which :class:`CostRegistry` reads
+    (a test passes a fake with the same methods)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def synchronize(self) -> None:
+        torch.cuda.synchronize(self.device)
+
+    def reset_peak(self) -> None:
+        torch.cuda.reset_peak_memory_stats(self.device)
+
+    def allocated(self) -> int:
+        return torch.cuda.memory_allocated(self.device)
+
+    def peak(self) -> int:
+        return torch.cuda.max_memory_allocated(self.device)
+
+
+def _card_memory(device) -> Optional[CudaMemory]:
+    return CudaMemory(device) if device.type == "cuda" else None
+
+
+def resident_bytes(tensors: Iterable[torch.Tensor], device) -> int:
+    """Bytes of the distinct storages under ``tensors`` that lie on
+    ``device`` (a storage shared by several tensors counts once; a freed
+    one, such as an FSDP parameter's between steps, counts 0)."""
+    device = torch.device(device)
+    seen, total = set(), 0
+    for t in tensors:
+        if t.device.type != device.type:
+            continue
+        storage = t.untyped_storage()
+        key = (storage.data_ptr(), storage.nbytes())
+        if storage.nbytes() and key not in seen:
+            seen.add(key)
+            total += storage.nbytes()
+    return total
+
+
 class CostRegistry:
     """Per-run registry of measured step cost records, keyed by tag.
 
     Tags are the Trainer's step names ("train_step", "eval_step"); a tag
-    measured again overwrites its record.
+    measured again overwrites its record. ``memory(device)`` gives the
+    allocator counters of a device, or None where there are none (the
+    default: :class:`CudaMemory` for a card, None for the CPU).
     """
 
-    def __init__(self):
+    def __init__(self, memory: Optional[Callable[[torch.device],
+                                                 object]] = None):
         self.records: Dict[str, Dict[str, object]] = {}
+        self._memory = memory or _card_memory
 
     @contextlib.contextmanager
-    def measure(self, tag: str, device) -> Iterator[Dict[str, object]]:
+    def _memory_of(self, device, resident: Optional[Callable[[], int]]
+                   ) -> Iterator[Dict[str, Optional[int]]]:
+        """``{"hbm_peak_bytes": ...}`` of the block (module docstring),
+        filled when it ends; None without a counter."""
+        counter = self._memory(torch.device(device))
+        out: Dict[str, Optional[int]] = {"hbm_peak_bytes": None}
+        if counter is None:
+            yield out
+            return
+        counter.synchronize()
+        counter.reset_peak()
+        start = counter.allocated()
+        base = resident() if resident is not None else 0
+        yield out
+        counter.synchronize()
+        out["hbm_peak_bytes"] = int(base + counter.peak() - start)
+
+    @contextlib.contextmanager
+    def measure(self, tag: str, device,
+                resident: Optional[Callable[[], int]] = None
+                ) -> Iterator[Dict[str, object]]:
         """Measure the step run inside the block; its record (filled when
-        the block ends) is yielded and kept under ``tag``."""
+        the block ends) is yielded and kept under ``tag``. ``resident``
+        returns the bytes of the train state and batch on the device at
+        the step's start (0 when not given)."""
         from torch.utils.flop_counter import FlopCounterMode
 
         from distributed_pytorch_example_tpu_torch.ops.attention import (
@@ -82,30 +160,35 @@ class CostRegistry:
         )
 
         device = torch.device(device)
-        cuda = device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
         record: Dict[str, object] = {"tag": tag}
         counter = FlopCounterMode(display=False)
-        with counter, count_flops() as attention, \
-                count_collectives() as collectives:
-            yield record
-        if cuda:
-            torch.cuda.synchronize(device)
+        with self._memory_of(device, resident) as memory:
+            with counter, count_flops() as attention, \
+                    count_collectives() as collectives:
+                yield record
         matmul = int(counter.get_total_flops())
         record.update({
             "flops_per_step_per_device": float(matmul + attention[0]),
             "matmul_flops": matmul,
             "attention_flops": attention[0],
             "bytes_accessed": None,
-            "hbm_peak_bytes": (torch.cuda.max_memory_allocated(device)
-                               if cuda else None),
+            "hbm_peak_bytes": memory["hbm_peak_bytes"],
             "collectives": collectives,
             "device_kind": device_kind(device),
             "peak_bf16_flops": peak_bf16_flops(device),
         })
         self.records[tag] = record
+
+    @contextlib.contextmanager
+    def measure_memory(self, tag: str, device,
+                       resident: Optional[Callable[[], int]] = None
+                       ) -> Iterator[None]:
+        """Take ``tag``'s ``hbm_peak_bytes`` anew on the step run inside
+        the block (the record's other fields stay those of the step that
+        :meth:`measure` counted)."""
+        with self._memory_of(device, resident) as memory:
+            yield
+        self.records[tag]["hbm_peak_bytes"] = memory["hbm_peak_bytes"]
 
     def get(self, tag: str) -> Optional[Dict[str, object]]:
         return self.records.get(tag)

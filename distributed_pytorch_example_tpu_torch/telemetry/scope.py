@@ -107,13 +107,23 @@ class Telemetry:
     # -- step costs -------------------------------------------------------
 
     @contextlib.contextmanager
-    def measure(self, tag: str, device):
+    def measure(self, tag: str, device, resident=None):
         """Measure the step run inside the block and register its cost
         record (:meth:`record_cost`): the port's counterpart of JAX's
-        ahead-of-time compile of each step program."""
-        with self.costs.measure(tag, device):
+        ahead-of-time compile of each step program. ``resident``: see
+        ``CostRegistry.measure``."""
+        with self.costs.measure(tag, device, resident):
             yield
         self.record_cost(tag)
+
+    @contextlib.contextmanager
+    def measure_memory(self, tag: str, device, resident=None):
+        """Take ``tag``'s ``hbm_peak_bytes`` anew on the step run inside
+        the block (``CostRegistry.measure_memory``) and log it."""
+        with self.costs.measure_memory(tag, device, resident):
+            yield
+        logger.info("graft-scope memory[%s]: hbm_peak=%s bytes", tag,
+                    self.costs.get(tag).get("hbm_peak_bytes"))
 
     def record_cost(self, tag: str) -> Dict[str, object]:
         """Log (and with per-N-step records on, write) the cost record of

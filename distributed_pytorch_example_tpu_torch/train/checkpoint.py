@@ -25,15 +25,18 @@ package:
 Two formats:
 
 - **gathered**: one file, a payload ``{epoch, loss, state, extra,
-  mesh_manifest}``. Under ZeRO-1 every rank gathers its tiles into full
-  leaves (a library all-gather, a collective); rank 0 writes and all meet
+  mesh_manifest}``. Under ZeRO-1 (and FSDP, the parameters too) every
+  rank gathers its tiles into full leaves (a library all-gather, a
+  collective); rank 0 writes and all meet
   at a barrier, so it saves on the saver's thread only in a one-process
   job. Retention: each save lands in ``{path}.history/{seq:08d}.ckpt``
   first and ``path`` becomes a hard link to it; the trail keeps
   ``retain`` entries.
 - **sharded**: ``{path}.shards/{version}/shard_{rank:05d}.msgpack`` per
   process (``{path: [{start, data}]}``, what this rank owns: its ZeRO-1
-  tiles, and on rank 0 every replicated leaf) plus ``manifest.msgpack``
+  tiles or its FSDP tiles of the parameters and moments, written by the
+  ranks of data index 0, and on rank 0 every replicated leaf) plus
+  ``manifest.msgpack``
   (``epoch``, ``loss``, ``extra``, ``nproc``, ``leaves`` with each leaf's
   ``shape``, ``dtype`` and ``chunks``, ``host_leaves``,
   ``mesh_manifest``), and ``path`` itself a pointer file,
@@ -46,8 +49,8 @@ Two formats:
   version dirs. So it saves on the saver's thread at any process count.
   A load reassembles each leaf from every shard file, one leaf at a
   time, and keeps what the layout needs of it (this rank's tiles), so a
-  checkpoint saved at one world or mode (replicated, ZeRO-1) restores at
-  any other.
+  checkpoint saved at one world or mode (replicated, ZeRO-1, FSDP)
+  restores at any other.
 
 The async save: the port updates parameters and moments in place, so the
 snapshot is a synchronous device-to-host copy on the calling thread
@@ -295,11 +298,13 @@ def _own_chunks(tree: dict, rank: int) -> Tuple[dict, dict]:
     """``(leaves, chunks)`` of a state tree made with ``gather=False``:
     the manifest's ``leaves`` (every leaf's shape, dtype and chunk count)
     and this rank's shard file ``{path: [{start, data}]}`` with the data
-    copied to the host: its :class:`Chunk` s, and on rank 0 every whole
-    leaf (replica 0 of a replicated leaf is rank 0's)."""
+    copied to the host: its :class:`Chunk` s (those it writes: a tile that
+    ranks of several data indices hold is written by data index 0's), and
+    on rank 0 every whole leaf (replica 0 of a replicated leaf is rank
+    0's)."""
     leaves, chunks = {}, {}
     for path, leaf in elastic.tree_leaves(tree):
-        owned = isinstance(leaf, Chunk) or rank == 0
+        owned = leaf.primary if isinstance(leaf, Chunk) else rank == 0
         if not isinstance(leaf, Chunk):
             leaf = Chunk(tuple(leaf.shape), [0] * len(leaf.shape), leaf, 1)
         leaves[path] = {"shape": [int(d) for d in leaf.shape],
@@ -673,7 +678,9 @@ def load_checkpoint(
     restores; ``MissingMeshManifestError`` (an unstamped checkpoint under
     ``DPX_ELASTIC=1``) is raised at once.
     """
-    target_axes = {"data": distributed.process_count()}
+    partitioner = getattr(layout, "partitioner", None)
+    target_axes = (dict(partitioner.mesh_shape) if partitioner is not None
+                   else {"data": distributed.process_count()})
     candidates: List[Tuple[str, Callable]] = []
 
     def add_sharded(primary_first: bool) -> None:

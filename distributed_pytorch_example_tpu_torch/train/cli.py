@@ -26,7 +26,13 @@ the dataset's label space, and a smaller value is refused.
 
 More than one process (``REPLICAS`` > 1, see runtime/distributed.py)
 gives data parallelism: each process takes its shard of the global batch
-and the gradients are averaged across processes every step. ``--zero1``
+and the gradients are averaged across processes every step.
+``--partition fsdp --mesh-fsdp F`` (``--model mlp|gpt2``) lays the
+processes out on a (data, fsdp) mesh (``--mesh-data`` -1 takes the rest)
+and shards every parameter and its moments over ``fsdp``: the step
+gathers the parameters and reduce-scatters the gradients (on the card
+through the ring kernels). ``--partition tp`` and the other mesh axes
+are refused (ROADMAP.md queue 1, items 11 and 15). ``--zero1``
 shards the optimizer state across the processes, ``--wire`` compresses the
 gradient collectives, ``--overlap-buckets`` fuses them into buckets (on
 the card, the ring kernels carry them), and ``--grad-accum k`` applies the
@@ -78,6 +84,7 @@ from distributed_pytorch_example_tpu_torch.models import get_model
 from distributed_pytorch_example_tpu_torch.parallel import (
     WireConfig,
     data_parallel,
+    fsdp,
 )
 from distributed_pytorch_example_tpu_torch.parallel.wire import (
     DEFAULT_BUCKET_BYTES,
@@ -88,6 +95,10 @@ from distributed_pytorch_example_tpu_torch.robustness import (
 )
 from distributed_pytorch_example_tpu_torch.runtime import distributed as dist
 from distributed_pytorch_example_tpu_torch.runtime.device import resolve_device
+from distributed_pytorch_example_tpu_torch.runtime.mesh import (
+    MeshSpec,
+    make_mesh,
+)
 from distributed_pytorch_example_tpu_torch.runtime.logging import (
     get_logger,
     setup_logging,
@@ -208,6 +219,45 @@ def build_task(args, model):
     return CausalLMTask()
 
 
+# the models that one CPU test holds against the JAX package's fsdp
+_FSDP_MODELS = ("mlp", "gpt2")
+
+
+def check_partition(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` on a ``--partition`` / ``--mesh-*`` combination the
+    port does not serve (the JAX CLI's own refusals in its words, the
+    rest naming ROADMAP.md)."""
+    if args.partition not in ("dp", "fsdp", "tp"):
+        parser.error(f"--partition must be dp|fsdp|tp, got "
+                     f"{args.partition!r}")
+    if args.partition == "tp":
+        parser.error("--partition tp (tensor parallelism, parallel/"
+                     "partition.py) is not ported to the PyTorch package "
+                     "yet; see ROADMAP.md queue 1, item 11")
+    if args.partition != "fsdp":
+        if args.mesh_fsdp != 1:
+            parser.error("--mesh-fsdp above 1 needs --partition fsdp in the "
+                         "PyTorch package; see ROADMAP.md queue 1, item 11")
+        return
+    # JAX train.py:350-355
+    if args.zero1:
+        parser.error("--zero1 is redundant under --partition fsdp (FSDP "
+                     "already shards optimizer state with the params)")
+    if args.model not in _FSDP_MODELS:
+        parser.error(f"--partition fsdp of --model {args.model} is not held "
+                     "against the JAX package yet (the port's FSDP serves "
+                     f"{'|'.join(_FSDP_MODELS)}); see ROADMAP.md queue 1, "
+                     "item 11")
+    if args.optimizer in ("lamb", "adafactor"):
+        parser.error(f"--optimizer {args.optimizer} under --partition fsdp "
+                     "is not ported to the PyTorch package yet; see "
+                     "ROADMAP.md queue 1, item 11")
+    if args.wire != "none" or args.wire_param_gather != "float32":
+        parser.error("--wire / --wire-param-gather under --partition fsdp "
+                     "are not ported to the PyTorch package yet; see "
+                     "ROADMAP.md queue 1, item 11")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -228,6 +278,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.model in _MAX_SEQ and not 2 <= args.seq_len <= _MAX_SEQ[args.model]:
         parser.error(f"--seq-len {args.seq_len} outside {args.model}'s "
                      f"context [2, {_MAX_SEQ[args.model]}]")
+    check_partition(parser, args)
 
     setup_logging()
     if args.chaos:
@@ -241,6 +292,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     world = dist.process_count()
+    try:
+        MeshSpec(data=args.mesh_data, fsdp=args.mesh_fsdp).resolve(world)
+    except ValueError as err:
+        parser.error(f"--mesh-data {args.mesh_data} --mesh-fsdp "
+                     f"{args.mesh_fsdp} over {world} processes: {err}")
     if args.grad_accum < 1:
         parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
     global_batch = args.batch_size * world
@@ -290,15 +346,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip,
         every_k=args.grad_accum,
     )
-    partitioner = data_parallel(
-        world, dp_shard_opt_state=args.zero1,
-        wire=WireConfig(
-            compress=args.wire, block_size=args.wire_block,
-            stochastic_rounding=args.wire_stochastic,
-            param_gather=args.wire_param_gather,
-            bucket_bytes=(DEFAULT_BUCKET_BYTES if args.overlap_buckets < 0
-                          else args.overlap_buckets),
-        ),
+    if args.partition == "fsdp":
+        partitioner = fsdp(make_mesh(MeshSpec(data=args.mesh_data,
+                                              fsdp=args.mesh_fsdp)))
+    else:
+        partitioner = data_parallel(world, dp_shard_opt_state=args.zero1)
+    # the wire policy rides the partitioner, as in the JAX CLI
+    partitioner.wire = WireConfig(
+        compress=args.wire, block_size=args.wire_block,
+        stochastic_rounding=args.wire_stochastic,
+        param_gather=args.wire_param_gather,
+        bucket_bytes=(DEFAULT_BUCKET_BYTES if args.overlap_buckets < 0
+                      else args.overlap_buckets),
     )
     trainer = Trainer(model, task, optimizer, partitioner=partitioner,
                       checkpoint_dir=args.checkpoint_dir,

@@ -30,8 +30,12 @@ Behavioural parity with the reference's ``main()`` orchestration
   ``checkpoint_fallbacks``), the chaos hooks (``robustness/chaos.py``), a
   check of the async saver after every step and its drain at the end;
 - a cross-process barrier per epoch (train.py:310);
-- ZeRO-1 and the wire layer through ``partitioner`` (``parallel/``), and
-  in-step gradient accumulation (``grad_accum_steps``), both in the step.
+- ZeRO-1, FSDP and the wire layer through ``partitioner`` (``parallel/``:
+  ``data_parallel`` or ``fsdp``, lowered from a ``PlanSpec``), and in-step
+  gradient accumulation (``grad_accum_steps``), both in the step. Under
+  FSDP each rank holds its tiles between steps; validation gathers the
+  parameters for its pass, a gathered checkpoint gathers them too, and
+  the cost record's ``hbm_peak_bytes`` is this rank's.
 
 ``checkpoint_format`` is ``auto`` (the sharded format for a multi-process
 job, whose saves gather nothing and write on the saver's thread; one
@@ -85,6 +89,9 @@ from distributed_pytorch_example_tpu_torch.telemetry import (
     Telemetry,
     TelemetryConfig,
     scheduled_overlap,
+)
+from distributed_pytorch_example_tpu_torch.telemetry.cost import (
+    resident_bytes,
 )
 from distributed_pytorch_example_tpu_torch.train import checkpoint as ckpt_lib
 from distributed_pytorch_example_tpu_torch.train.metrics import (
@@ -223,6 +230,8 @@ class Trainer:
         self.wire_report: Optional[Dict[str, Any]] = None  # set in init()
         self.overlap_report: Optional[Dict[str, Any]] = None
         self._bucket_plan = None
+        # the second train step re-takes the cost record's memory
+        self._memory_pending = False
         # events fired before fit's scope exists, flushed into it on
         # creation (see _record_event)
         self._pending_events: List[Any] = []
@@ -241,7 +250,7 @@ class Trainer:
             return self.state
         wire = self.partitioner.wire or wirelib.WireConfig()
         named = dict(self.model.named_parameters())
-        shapes = {leaf.key: tuple(leaf.to_jax(named[leaf.name]).shape)
+        shapes = {leaf.key: leaf.jax_shape(named[leaf.name].shape)
                   for leaf in interop.flax_leaves(self.model)}
         self.wire_report = wirelib.grad_wire_report(shapes, self.partitioner,
                                                     wire)
@@ -254,14 +263,12 @@ class Trainer:
                 self.wire_report["wire_compression_ratio"],
             )
         if wire.bucketed:
-            if self.partitioner.dp_shard_opt_state:
-                dims = self.partitioner.zero1_dims(shapes)
-            else:
-                dims = dict.fromkeys(shapes)
+            dims = self.partitioner.sync_dims(shapes)
             # the plan sync_grads executes (grad shapes are the params')
             self._bucket_plan = wirelib.plan_buckets(
                 list(dims.values()), list(shapes.values()), wire,
-                self.partitioner.world)
+                self.partitioner.mesh.shape[
+                    self.partitioner.grad_sync_axis()])
             self.overlap_report = scheduled_overlap(
                 self._bucket_plan, grad_accum_steps=self.grad_accum_steps)
             logger.info(
@@ -346,7 +353,7 @@ class Trainer:
             # deterministic fault injection (no-op without a chaos plan);
             # the global step counts on through a rollback, as JAX's does
             batch = chaos.corrupt_batch(batch, self._global_step)
-            with self._measured("train_step"), _span(scope, "step"):
+            with self._measured("train_step", batch), _span(scope, "step"):
                 metrics = self.train_step(self.state, batch)
             self._global_step += 1
             acc.append(metrics)
@@ -398,12 +405,40 @@ class Trainer:
 
     # -- bad-step budget (graft-armor) ------------------------------------
 
-    def _measured(self, tag: str):
+    def _measured(self, tag: str, batch=None):
         """The cost measurement of the run's first ``tag`` step (telemetry
-        on, not yet measured), else a no-op."""
-        if self.scope is None or self.scope.costs.get(tag) is not None:
+        on, not yet measured); on the second train step, its memory again
+        (the first whose optimizer state exists); else a no-op."""
+        if self.scope is None:
             return contextlib.nullcontext()
-        return self.scope.measure(tag, self._device())
+
+        def resident() -> int:
+            return self._resident_bytes(batch)
+
+        if self.scope.costs.get(tag) is None:
+            if tag == "train_step":
+                self._memory_pending = True
+            return self.scope.measure(tag, self._device(), resident)
+        if tag == "train_step" and self._memory_pending:
+            self._memory_pending = False
+            return self.scope.measure_memory(tag, self._device(), resident)
+        return contextlib.nullcontext()
+
+    def _resident_bytes(self, batch) -> int:
+        """Bytes on the device of the train state (parameters, buffers,
+        the optimizer's parameters and state, the accumulated gradients,
+        the gradients a step left) and of ``batch``: the resident part of
+        ``hbm_peak_bytes``."""
+        opt = self.state.optimizer
+        params = list(self.model.parameters()) + opt.params
+        tensors = params + [p.grad for p in params if p.grad is not None]
+        tensors += list(self.model.buffers()) + list(opt._acc or [])
+        for st in opt.optimizer.state.values():
+            tensors += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        if isinstance(batch, dict):
+            tensors += [v for v in batch.values()
+                        if isinstance(v, torch.Tensor)]
+        return resident_bytes(tensors, self._device())
 
     def _record_event(self, kind: str, **fields) -> None:
         """Recovery-event sink: counts the checkpoint fallbacks and
@@ -477,9 +512,11 @@ class Trainer:
 
     def validate(self, loader) -> Dict[str, float]:
         acc = MetricAccumulator()
-        for batch_idx, batch in enumerate(loader):
-            with self._measured("eval_step"), _span(self.scope, "eval"):
-                acc.append(self.eval_step(self.state, batch, batch_idx))
+        # under FSDP the parameters are gathered once for the pass
+        with self._step.gathered(self.state):
+            for batch_idx, batch in enumerate(loader):
+                with self._measured("eval_step"), _span(self.scope, "eval"):
+                    acc.append(self.eval_step(self.state, batch, batch_idx))
         return acc.result()
 
     # -- full fit ---------------------------------------------------------

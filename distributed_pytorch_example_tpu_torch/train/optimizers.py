@@ -52,6 +52,7 @@ leaf, a :class:`Chunk` for a tile.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from types import SimpleNamespace
@@ -699,6 +700,9 @@ class Chunk:
     # the rank keeps the whole leaf: the chunk is only where the sharded
     # format writes it (an adafactor statistic JAX shards, kept whole here)
     whole: bool = False
+    # this rank writes the chunk in the sharded format; another rank that
+    # holds the same chunk (a replica over ``data`` under FSDP) does not
+    primary: bool = True
 
 
 class StateLayout:
@@ -711,6 +715,7 @@ class StateLayout:
     partitioner = None
 
     def __init__(self, model: torch.nn.Module):
+        self.model = model
         self.leaves = interop.flax_leaves(model)
         named = dict(model.named_parameters())
         self.targets: List[torch.Tensor] = [named[leaf.name]
@@ -758,6 +763,16 @@ class StateLayout:
         Nothing is sharded here."""
         return self.to_full(tensors)
 
+    def params(self, gather: bool = True) -> dict:
+        """The model's parameters as the flax param tree (views in the
+        JAX layout: here the parameters are whole on every rank)."""
+        return interop.params_to_flax(self.model)
+
+    def load_params(self, tree: dict) -> None:
+        """Copy a flax param tree into the parameters; raises, before
+        copying anything, on a missing, extra or misshapen leaf."""
+        interop.params_from_flax(self.model, tree)
+
     # adafactor's statistics live in the JAX layout, shaped by the whole
     # leaf (``Adafactor.init_state``), not like the targets
 
@@ -795,17 +810,21 @@ class ShardedUpdate:
     tiles back into the model's parameters.
     """
 
+    # the process group the tiles are cut over (None: every process), and
+    # whether this rank writes its chunks in the sharded format (a tile
+    # held by several ranks is written by one)
+    group = None
+    primary = True
+
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  partitioner, rank: int, world: int):
+        self.model = model
         self.leaves = interop.flax_leaves(model)
         named = dict(model.named_parameters())
         self.params = [named[leaf.name] for leaf in self.leaves]
-        shapes = {leaf.key: tuple(leaf.to_jax(p).shape)
+        shapes = {leaf.key: leaf.jax_shape(p.shape)
                   for leaf, p in zip(self.leaves, self.params)}
-        if partitioner.dp_shard_opt_state:
-            by_path = partitioner.zero1_dims(shapes)
-        else:
-            by_path = dict.fromkeys(shapes)
+        by_path = partitioner.sync_dims(shapes)
         self.dims = [by_path[leaf.key] for leaf in self.leaves]
         self.partitioner = partitioner
         self.rank, self.world = rank, world
@@ -830,7 +849,8 @@ class ShardedUpdate:
                 t: Tile(shapes[leaf.key], dim, rank, world)
                 for leaf, t, dim in zip(self.leaves, self.tiles, self.dims)
                 if t is not None}
-            optimizer.optimizer.all_reduce = distributed.all_reduce_sum_
+            optimizer.optimizer.all_reduce = lambda t: (
+                distributed.all_reduce_sum_(t, self.group))
         self.optimizer = optimizer
 
     def whole_leaf_norms(self, params, p_norm: torch.Tensor,
@@ -846,7 +866,7 @@ class ShardedUpdate:
             return p_norm, u_norm
         sel = torch.tensor(idx, device=p_norm.device)
         sq = torch.cat([p_norm[sel], u_norm[sel]]).float().square()
-        sq = distributed.all_reduce_sum_(sq).sqrt()
+        sq = distributed.all_reduce_sum_(sq, self.group).sqrt()
         p_norm, u_norm = p_norm.clone(), u_norm.clone()
         p_norm[sel] = sq[:len(idx)].to(p_norm.dtype)
         u_norm[sel] = sq[len(idx):].to(u_norm.dtype)
@@ -856,7 +876,7 @@ class ShardedUpdate:
         """This rank's float32 gradients, JAX layout and order (zeros for
         a parameter the loss did not reach)."""
         return [leaf.to_jax(p.grad).float() if p.grad is not None
-                else torch.zeros(leaf.to_jax(p).shape, device=p.device)
+                else torch.zeros(leaf.jax_shape(p.shape), device=p.device)
                 for leaf, p in zip(self.leaves, self.params)]
 
     def set_grads(self, synced: Sequence[torch.Tensor]) -> None:
@@ -879,7 +899,7 @@ class ShardedUpdate:
         sq = torch.zeros((), device=device)
         if tiles:
             sq = torch.stack(torch._foreach_norm(tiles)).square().sum()
-            sq = distributed.all_reduce_sum_(sq.reshape(1))[0]
+            sq = distributed.all_reduce_sum_(sq.reshape(1), self.group)[0]
         if rest:
             sq = sq + torch.stack(
                 torch._foreach_norm([g.float() for g in rest])).square().sum()
@@ -895,7 +915,7 @@ class ShardedUpdate:
         if tiles:
             sums = torch.stack([global_norm(tiles).square(),
                                 nonfinite_count(tiles)])
-            sums = distributed.all_reduce_sum_(sums)
+            sums = distributed.all_reduce_sum_(sums, self.group)
         if rest:
             sums = sums + torch.stack([global_norm(rest).square(),
                                        nonfinite_count(rest)])
@@ -910,7 +930,7 @@ class ShardedUpdate:
         count = torch.zeros((), device=self.params[0].device)
         if tiles:
             count = distributed.all_reduce_sum_(
-                nonfinite_count(tiles).reshape(1))[0]
+                nonfinite_count(tiles).reshape(1), self.group)[0]
         if rest:
             count = count + nonfinite_count(rest)
         return count
@@ -919,6 +939,10 @@ class ShardedUpdate:
         """The checkpoint layout of this update: tiles gathered on save,
         sliced on load."""
         return ShardedLayout(self)
+
+    def end_step(self) -> None:
+        """What the step does last, applied or skipped (nothing here: the
+        parameters stay whole between steps)."""
 
     @torch.no_grad()
     def replicate(self, config: "wirelib.WireConfig") -> None:
@@ -932,7 +956,8 @@ class ShardedUpdate:
             return
         if config.param_gather == "float32":
             flat = torch.cat([self.tiles[i].reshape(-1) for i in idx])
-            rows = distributed.all_gather_tiled(flat[None])  # (world, n)
+            rows = distributed.all_gather_tiled(  # (world, n)
+                flat[None], group=self.group)
             offset, fulls = 0, []
             for i in idx:
                 n = self.tiles[i].numel()
@@ -965,13 +990,14 @@ class ShardedLayout(StateLayout):
 
     def __init__(self, update: ShardedUpdate):
         self.update = update
+        self.model = update.model
         self.leaves = update.leaves
         self.partitioner = update.partitioner
         self.targets = [t if t is not None else p
                         for t, p in zip(update.tiles, update.params)]
 
     def full_shapes(self) -> List[tuple]:
-        return [tuple(leaf.to_jax(p).shape)
+        return [leaf.jax_shape(p.shape)
                 for leaf, p in zip(self.leaves, self.update.params)]
 
     @torch.no_grad()
@@ -989,7 +1015,8 @@ class ShardedLayout(StateLayout):
         u = self.update
         if idx:
             flat = torch.cat([tensors[i].reshape(-1).float() for i in idx])
-            rows = distributed.all_gather_tiled(flat[None])  # (world, n)
+            rows = distributed.all_gather_tiled(  # (world, n)
+                flat[None], group=u.group)
             offset = 0
             for i in idx:
                 n = tensors[i].numel()
@@ -1031,7 +1058,8 @@ class ShardedLayout(StateLayout):
             if i in tiled:
                 start = [0] * len(full[i])
                 start[u.dims[i]] = u.rank * u.chunk_shapes[i][u.dims[i]]
-                out[i] = Chunk(full[i], start, v, u.world)
+                out[i] = Chunk(full[i], start, v, u.world,
+                               primary=u.primary)
                 continue
             dim = self.partitioner.zero1_dim(tuple(v.shape))
             if dim is not None:
@@ -1065,7 +1093,8 @@ class ShardedLayout(StateLayout):
                 continue
             start = [0] * len(full)
             start[d] = u.rank * cs[d]
-            out.append(Chunk(full, start, t.reshape(cs), u.world))
+            out.append(Chunk(full, start, t.reshape(cs), u.world,
+                             primary=u.primary))
         return out
 
     def from_full(self, fulls: Sequence) -> List[torch.Tensor]:
@@ -1093,6 +1122,213 @@ class ShardedLayout(StateLayout):
             if tile is not None:
                 rows, _ = wirelib._scatter_parts(leaf.to_jax(p), d, u.world)
                 tile.copy_(rows[u.rank].reshape(tile.shape))
+
+
+class FSDPUpdate(ShardedUpdate):
+    """The FSDP update (``PlanSpec(family="fsdp")``; in JAX, GSPMD's
+    program for the ``fsdp`` rules): every parameter leaf with a dim that
+    the FSDP axis divides lives between steps only as this rank's float32
+    tile, cut on the dim :func:`parallel.api.shard_largest_axis` picks on
+    the leaf's JAX layout (a ``Linear`` weight is the transpose of a flax
+    kernel), tile ``index`` of ``fsdp`` at rows ``index * chunk``; its
+    moments live on the tile. A leaf no dim of which divides stays whole.
+
+    The step (``train/step.py``):
+
+    1. :meth:`materialize` all-gathers each tile over the ``fsdp`` group
+       into its parameter's storage, leaf by leaf through
+       ``wire.wire_all_gather`` (K3a on the card where it takes the
+       payload, the library gather otherwise);
+    2. forward and backward on the whole parameters;
+    3. ``wire.sync_grads`` reduce-scatters each gradient to its tile over
+       ``fsdp``, in fused buckets (K3b on the card where it takes the
+       bucket), scaled to the global mean over ``data x fsdp``; at
+       ``data > 1`` the tiles' gradients then all-reduce over ``data``;
+    4. the optimizer updates the tiles only;
+    5. :meth:`end_step` frees each sharded parameter's storage (its shape
+       stays; its bytes are 0) and drops the gradients.
+
+    What a rank holds: between steps the tiles and their moments, 1 /
+    fsdp of the sharded leaves' bytes each (plus the leaves kept whole);
+    during the step also every parameter whole and its gradient, as the
+    replicated step holds them, since the gather covers the whole model
+    before the forward. A gathered parameter is not freed after its
+    layer's use (FSDP's per-layer reshard is left to ROADMAP.md item 11),
+    so the step's peak is the replicated step's minus the moments' and
+    the tiles' saving. Validation and a gathered checkpoint gather too
+    (:meth:`gathered`, :class:`FSDPLayout`).
+
+    Lamb and adafactor keep whole-leaf statistics and are refused here
+    (ROADMAP.md queue 1, item 11)."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
+                 partitioner):
+        if isinstance(optimizer.optimizer, (Lamb, Adafactor)):
+            raise NotImplementedError(
+                f"{type(optimizer.optimizer).__name__} under FSDP is not "
+                "ported to the PyTorch package yet; see ROADMAP.md queue 1, "
+                "item 11")
+        wire = partitioner.wire or wirelib.WireConfig()
+        if wire.compress != "none" or wire.param_gather != "float32":
+            raise NotImplementedError(
+                "a compressed wire under FSDP is not ported to the PyTorch "
+                "package yet; see ROADMAP.md queue 1, item 11")
+        mesh, axis = partitioner.mesh, partitioner.fsdp_axis
+        super().__init__(model, optimizer, partitioner,
+                         mesh.axis_index(axis), mesh.shape[axis])
+        self.group = mesh.group(axis)
+        self.data_group = mesh.group("data")
+        self.data_size = mesh.shape["data"]
+        self.primary = mesh.axis_index("data") == 0
+        # the scatters go in fused buckets (FSDP's flat units), each one
+        # collective: K3b on the card
+        self.config = dataclasses.replace(
+            wire, bucket_bytes=wire.bucket_bytes
+            or wirelib.DEFAULT_BUCKET_BYTES)
+        for p, t in zip(self.params, self.tiles):
+            if t is not None and (p.storage_offset() or not p.is_contiguous()
+                                  or p.untyped_storage().nbytes()
+                                  != p.numel() * p.element_size()):
+                raise ValueError("FSDP frees each sharded parameter's "
+                                 "storage: a parameter must own its storage")
+        self.materialized = True
+        self.end_step()
+
+    @torch.no_grad()
+    def materialize(self) -> None:
+        """Gather every tile into its parameter (a collective over the
+        ``fsdp`` group, one gather a leaf)."""
+        if self.materialized:
+            return
+        for leaf, p, tile, dim, cs in zip(self.leaves, self.params,
+                                          self.tiles, self.dims,
+                                          self.chunk_shapes):
+            if tile is None:
+                continue
+            p.untyped_storage().resize_(p.numel() * p.element_size())
+            rows = wirelib.wire_all_gather(tile.reshape(1, -1),
+                                           config=self.config,
+                                           group=self.group)
+            p.copy_(leaf.from_jax(wirelib._unscatter(rows, dim, cs)))
+        self.materialized = True
+
+    def end_step(self) -> None:
+        """Free each sharded parameter's storage and its gradient."""
+        for p, tile in zip(self.params, self.tiles):
+            if tile is not None:
+                p.grad = None
+                p.untyped_storage().resize_(0)
+        self.materialized = False
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The parameters whole inside the block (gathered if they are
+        not), freed again after it."""
+        was = self.materialized
+        self.materialize()
+        try:
+            yield
+        finally:
+            if not was:
+                self.end_step()
+
+    def sync(self, scale: float) -> None:
+        """The gradients' reduce-scatter to the tiles (and all-reduce of
+        the leaves kept whole) over ``fsdp``, then over ``data``; each
+        scaled by ``scale``; set as what the optimizer updates."""
+        synced = wirelib.sync_grads(self.local_grads(), self.dims,
+                                    config=self.config, scale=scale,
+                                    group=self.group)
+        if self.data_size > 1:
+            flat = torch.cat([g.reshape(-1) for g in synced])
+            distributed.all_reduce_sum_(flat, self.data_group)
+            offset = 0
+            for i, g in enumerate(synced):
+                synced[i] = flat[offset:offset + g.numel()].view_as(g)
+                offset += g.numel()
+        self.set_grads(synced)
+
+    def replicate(self, config: "wirelib.WireConfig") -> None:
+        """Nothing: the next step's :meth:`materialize` gathers the
+        updated tiles."""
+
+    def param_norm(self) -> torch.Tensor:
+        """The parameters' global norm from the tiles (their squares
+        summed over ``fsdp``) and the leaves kept whole."""
+        tiles = [t for t in self.tiles if t is not None]
+        rest = [p for p, t in zip(self.params, self.tiles) if t is None]
+        sq = torch.zeros((), device=self.params[0].device)
+        if tiles:
+            sq = distributed.all_reduce_sum_(
+                global_norm(tiles).square().reshape(1), self.group)[0]
+        if rest:
+            sq = sq + global_norm(rest).square()
+        return sq.sqrt()
+
+    def layout(self) -> "FSDPLayout":
+        return FSDPLayout(self)
+
+
+class FSDPLayout(ShardedLayout):
+    """The FSDP layout: as :class:`ShardedLayout` for the optimizer
+    state, and the sharded parameters too live on this rank's tiles. The
+    gathered format gathers them (a collective over ``fsdp``), so its file
+    equals the replicated run's byte for byte; the sharded format writes
+    each tile as a :class:`Chunk` (from the ranks of data index 0); a load
+    keeps this rank's tile of each leaf, whatever layout wrote it."""
+
+    @torch.no_grad()
+    def params(self, gather: bool = True) -> dict:
+        u = self.update
+        full = self.full_shapes()
+        out = [None if t is not None else leaf.to_jax(p.detach())
+               for leaf, p, t in zip(self.leaves, u.params, u.tiles)]
+        idx = [i for i, t in enumerate(u.tiles) if t is not None]
+        if gather:
+            self._gather_into(out, u.tiles, idx)
+        else:
+            for i in idx:
+                start = [0] * len(full[i])
+                start[u.dims[i]] = u.rank * u.chunk_shapes[i][u.dims[i]]
+                out[i] = Chunk(full[i], start, u.tiles[i], u.world,
+                               primary=u.primary)
+        return self.tree(out)
+
+    @torch.no_grad()
+    def load_params(self, tree: dict) -> None:
+        u = self.update
+        values = []
+        for leaf, full in zip(self.leaves, self.full_shapes()):
+            value = _lookup(tree, leaf.path, "params leaf")
+            shape = value.shape if isinstance(value, Chunk) else tuple(
+                value.shape)
+            if tuple(shape) != full:
+                raise ValueError(f"checkpoint params {leaf.key}: shape "
+                                 f"{tuple(shape)}, this model's {full}")
+            values.append(value)
+        extra = {"/".join(p) for p in _leaf_paths(tree)} - {
+            leaf.key for leaf in self.leaves}
+        if extra:
+            raise ValueError("checkpoint params hold leaves this model "
+                             "lacks: " + ", ".join(sorted(extra)))
+        tiles = self.from_full(values)
+        for leaf, p, tile, value, own in zip(self.leaves, u.params, u.tiles,
+                                             values, tiles):
+            if tile is not None:
+                tile.copy_(own)
+            else:
+                p.copy_(leaf.from_jax(interop.as_tensor(value)))
+
+    def refresh(self) -> None:
+        """Nothing: :meth:`load_params` wrote the tiles themselves."""
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _leaf_paths(value, prefix + (key,))
+    else:
+        yield prefix
 
 
 def make_optimizer(

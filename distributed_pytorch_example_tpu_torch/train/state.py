@@ -60,15 +60,16 @@ class TrainState:
 def state_tree(state: TrainState, layout: Optional[StateLayout] = None,
                gather: bool = True) -> dict:
     """The state as the flax tree, its tensors where they live (views in
-    the JAX layout; under ZeRO-1 the moments are gathered, a collective).
-    ``layout`` defaults to the replicated one of ``state.model``.
-    ``gather=False``: a leaf the layout shards is this rank's ``Chunk``
-    instead, and nothing is exchanged (the sharded checkpoint format)."""
+    the JAX layout; under ZeRO-1 the moments are gathered, under FSDP the
+    parameters too: collectives). ``layout`` defaults to the replicated
+    one of ``state.model``. ``gather=False``: a leaf the layout shards is
+    this rank's ``Chunk`` instead, and nothing is exchanged (the sharded
+    checkpoint format)."""
     if layout is None:
         layout = StateLayout(state.model)
     return {
         "step": np.asarray(state.step, dtype=np.int32),
-        "params": interop.params_to_flax(state.model),
+        "params": layout.params(gather),
         "opt_state": state.optimizer.state_tree(layout, gather=gather),
         "model_state": interop.model_state_to_flax(state.model),
         "rng": np.array(state.rng, dtype=np.uint32),
@@ -118,7 +119,7 @@ def train_state_from_flax(state: TrainState, tree: dict,
                                     check_only=True)
     interop.model_state_from_flax(state.model, tree["model_state"],
                                   check_only=True)
-    interop.params_from_flax(state.model, tree["params"])
+    layout.load_params(tree["params"])
     interop.model_state_from_flax(state.model, tree["model_state"])
     layout.refresh()
     state.optimizer.load_state_tree(tree["opt_state"], layout)

@@ -26,7 +26,16 @@ manual data modes:
   layout and order, scaled by ``1 / (world * grad_accum_steps)``. With
   ZeRO-1 the large leaves reduce-scatter to this rank's tile, the
   optimizer updates the tiles (``train/optimizers.py`` ``ShardedUpdate``)
-  and the updated tiles gather back into the parameters.
+  and the updated tiles gather back into the parameters;
+- **FSDP** (a partitioner of the ``fsdp`` family): the parameters live as
+  tiles between steps (``train/optimizers.py`` ``FSDPUpdate``); the step
+  gathers them, runs forward and backward with the replicated step's
+  semantics (global-batch BatchNorm statistics, a masked LM's global
+  count: JAX runs FSDP as the automatic program on the global batch),
+  reduce-scatters the gradients to the tiles in one ``sync_grads`` call
+  over ``fsdp`` (then an all-reduce over ``data``), scaled by
+  ``1 / (world * grad_accum_steps)``, updates the tiles and frees the
+  gathered parameters. ``param_norm`` comes from the tiles.
 
 ``grad_accum_steps = N`` runs N microbatches (contiguous slices of the
 local batch) before the one sync, accumulating float32 gradients (the
@@ -84,6 +93,7 @@ Pipelines are not in this slice and raise.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -97,6 +107,7 @@ from distributed_pytorch_example_tpu_torch.ops import collectives
 from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.runtime import distributed
 from distributed_pytorch_example_tpu_torch.train.optimizers import (
+    FSDPUpdate,
     ShardedUpdate,
     global_norm,
     nonfinite_count,
@@ -225,8 +236,9 @@ def build_train_step(
             f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     if wire is None:
         wire = getattr(partitioner, "wire", None) or wirelib.WireConfig()
+    fsdp = getattr(partitioner, "fsdp_axis", None) is not None
     manual = partitioner is not None and (
-        partitioner.dp_shard_opt_state or grad_accum_steps > 1
+        fsdp or partitioner.dp_shard_opt_state or grad_accum_steps > 1
         or wire.compress != "none" or wire.bucketed
     )
     updates: Dict[int, ShardedUpdate] = {}
@@ -234,9 +246,12 @@ def build_train_step(
     def sharded(state: TrainState) -> ShardedUpdate:
         key = id(state.optimizer)
         if key not in updates:
-            updates[key] = ShardedUpdate(
-                state.model, state.optimizer, partitioner,
-                distributed.process_index(), distributed.process_count())
+            updates[key] = (
+                FSDPUpdate(state.model, state.optimizer, partitioner) if fsdp
+                else ShardedUpdate(
+                    state.model, state.optimizer, partitioner,
+                    distributed.process_index(),
+                    distributed.process_count()))
         return updates[key]
 
     def manual_sync(state: TrainState):
@@ -245,6 +260,11 @@ def build_train_step(
         non-finite elements (None otherwise), reduced together."""
         update = sharded(state)
         world = distributed.process_count()
+        if fsdp:
+            update.sync(1.0 / (world * grad_accum_steps))
+            if sentinels and not skip_nonfinite:
+                return update.norm_and_count()
+            return update.global_norm(), None
         generator = None
         if wire.stochastic_rounding and wire.compress != "none":
             device = update.params[0].device
@@ -266,7 +286,9 @@ def build_train_step(
         if fold_in is not None:  # dropout draws from (seed, step) alone
             fold_in(state.step)
         if manual:
-            sharded(state)  # rebinds the optimizer before its first use
+            update = sharded(state)  # rebinds the optimizer before its use
+            if fsdp:
+                update.materialize()  # the parameters' gathers
         # the model's own grads too: under ZeRO-1 the optimizer holds the
         # tiles, not the sharded parameters
         model.zero_grad(set_to_none=True)
@@ -277,11 +299,14 @@ def build_train_step(
         # the running statistics update in place in the forward: a copy to
         # put back if the step is skipped
         saved = _flat(stats) if stats and skip_nonfinite else None
-        with global_batch_stats(not manual and world > 1):
+        # the replicated step's semantics (FSDP's too: JAX runs it as the
+        # automatic program on the global batch)
+        global_batch = world > 1 and (fsdp or not manual)
+        with global_batch_stats(global_batch):
             metrics = _mean_metrics(_backward(
                 task, model, batch, grad_accum_steps, task_kw,
-                global_count=not manual and world > 1))
-        if manual and stats and world > 1:
+                global_count=global_batch))
+        if manual and not fsdp and stats and world > 1:
             flat = distributed.all_reduce_mean_(_flat(stats))
             _unflat(flat, stats)
         if manual:
@@ -308,8 +333,11 @@ def build_train_step(
             # a finite norm means no element is NaN or Inf: the skip's
             # count (0 then) is the sentinel's
             metrics = {**metrics, "grad_norm": norm,
-                       "param_norm": global_norm(model.parameters()),
+                       "param_norm": (sharded(state).param_norm() if fsdp
+                                      else global_norm(model.parameters())),
                        "nonfinite_grads": bad if count is None else count}
+        if manual:
+            sharded(state).end_step()
         if skip_nonfinite:
             metrics = {**metrics, "bad_step": (bad > 0).float()}
         state.step += 1
@@ -321,8 +349,16 @@ def build_train_step(
         or None for the replicated parameters."""
         return sharded(state).layout() if manual else None
 
+    def gathered(state: TrainState):
+        """A block in which the parameters are whole (FSDP gathers them
+        and frees them after it; nothing to do otherwise)."""
+        if not fsdp:
+            return contextlib.nullcontext()
+        return sharded(state).gathered()
+
     train_step.sharded = sharded  # the ZeRO-1 / wire update, for checks
     train_step.layout = layout
+    train_step.gathered = gathered
     return train_step
 
 

@@ -13,8 +13,6 @@ import argparse
 # flag -> the JAX package's default: set to anything else, the port refuses
 UNSERVED = {
     "auto_mesh": False,
-    "mesh_data": -1,
-    "mesh_fsdp": 1,
     "mesh_tensor": 1,
     "mesh_sequence": 1,
     "sp_mode": None,
@@ -27,9 +25,16 @@ UNSERVED = {
     "moe_experts": 0,
     "moe_every": 2,
     "moe_top_k": None,
-    "partition": "dp",
     "shard_cache_mb": 0,
     "publish_dir": None,
+}
+# the ROADMAP.md queue 1 item that ports a refused flag
+UNSERVED_ITEM = {
+    "auto_mesh": "16", "mesh_tensor": "11", "mesh_sequence": "15",
+    "sp_mode": "15", "mesh_expert": "15", "mesh_pipe": "15",
+    "pipe_microbatches": "15", "pipe_schedule": "15", "pipe_virtual": "15",
+    "pipe_no_recompute": "15", "moe_experts": "15", "moe_every": "15",
+    "moe_top_k": "15", "shard_cache_mb": "13", "publish_dir": "D",
 }
 
 
@@ -81,6 +86,14 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--token-dtype", type=str, default="uint16",
                         choices=("uint16", "uint32", "int32"),
                         help="element dtype of raw .bin token files")
+    parser.add_argument("--mesh-data", type=int, default=-1,
+                        help="ranks on the data axis (-1: the rest)")
+    parser.add_argument("--mesh-fsdp", type=int, default=1,
+                        help="ranks on the fsdp axis (needs --partition "
+                        "fsdp)")
+    parser.add_argument("--partition", type=str, default="dp",
+                        help="dp|fsdp (tp is not ported: ROADMAP.md queue "
+                        "1, item 11)")
     parser.add_argument("--seq-len", type=int, default=512)
     parser.add_argument("--pad-token-id", type=int, default=None,
                         help="bert: mask keys at this token id out of "
@@ -216,5 +229,6 @@ def check_unserved(parser: argparse.ArgumentParser, args) -> None:
         if getattr(args, name) != default:
             parser.error(
                 f"--{name.replace('_', '-')} is not ported to the PyTorch "
-                "package yet; see ROADMAP.md queue 1"
+                f"package yet; see ROADMAP.md queue 1, item "
+                f"{UNSERVED_ITEM[name]}"
             )

@@ -420,6 +420,60 @@ def test_world2_sharded_checkpoint_loads_at_world1(adafactor_pair):
     assert np.isfinite(float(metrics["loss"]))
 
 
+def test_world2_sharded_checkpoint_loads_in_jax(adafactor_pair):
+    """The world-2 adafactor file, cut by ZeRO-1 (tiled ``v`` s and the
+    statistics JAX would shard), loads in the JAX package, in one process,
+    leaf for leaf equal to the state the pair gathered and to the port's
+    own world-1 load of it. JAX is imported here only: the pair's spawned
+    processes import this module and run no JAX."""
+    import flax.serialization as flax_ser
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_pytorch_example_tpu.models.gpt2 import GPT2 as JaxGPT2
+    from distributed_pytorch_example_tpu.train import checkpoint as jax_ckpt
+    from distributed_pytorch_example_tpu.train import optimizers as jax_opt
+    from distributed_pytorch_example_tpu.train.state import (
+        TrainState as JaxState,
+    )
+
+    path = os.path.join(adafactor_pair["root"], "ada", ckpt.LATEST_NAME)
+    params = JaxGPT2(**KW, logits_mode="hidden").init(
+        jax.random.key(0), jnp.zeros((1, SEQ), jnp.int32))["params"]
+    tx = jax_opt.make_optimizer("adafactor", LR)
+    template = JaxState(step=jnp.zeros((), jnp.int32), params=params,
+                        opt_state=tx.init(params), model_state={},
+                        rng=jax.random.key(5))
+    loaded, epoch, _ = jax_ckpt.load_checkpoint(path, template)
+    loaded = loaded.replace(rng=jax.random.key_data(loaded.rng))
+    got = flax_ser.to_state_dict(jax.device_get(loaded))
+    model = GPT2(**KW, logits_mode="hidden", device="cpu", seed=5)
+    trainer = Trainer(model, CausalLMTask(), make_optimizer(model,
+                                                            "adafactor", LR),
+                      telemetry=False)
+    trainer.load(path)
+    mine = to_numpy(to_host(state_tree(trainer.state)))
+    want = adafactor_pair["ranks"][0]["sharded"]["opt_state"]
+    assert epoch == 1 and int(got["step"]) == 2
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        else:
+            yield prefix, np.asarray(tree)
+
+    for ref, what in ((mine, "the port's world-1 load"),
+                      ({"opt_state": want}, "the pair's gathered state")):
+        ref = dict(leaves(ref))
+        jax_leaves = {k: v for k, v in leaves(got) if k in ref}
+        assert jax_leaves.keys() == ref.keys(), what
+        for key, value in ref.items():
+            assert jax_leaves[key].dtype == value.dtype, (what, key)
+            np.testing.assert_array_equal(jax_leaves[key], value,
+                                          err_msg=f"{what}: {key}")
+
+
 @pytest.mark.parametrize("shape,dim", [
     ((257, 128), 1), ((128, 256), 0), ((128, 256), 1), ((130, 4, 128), 0),
     ((130, 4, 128), 1), ((130, 4, 128), 2)])

@@ -66,6 +66,9 @@ def test_port_and_chip_smoke_import_no_jax():
             package / "runtime" / "profiler.py"} <= set(files)
     assert {package / "telemetry" / f"{name}.py" for name in (
         "sentinels", "steptime", "cost", "scope", "overlap")} <= set(files)
+    # the mesh and the plan
+    assert {package / "runtime" / "mesh.py",
+            package / "parallel" / "plan.py"} <= set(files)
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
