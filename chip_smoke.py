@@ -179,11 +179,28 @@ last line:
    sharded checkpoint, loaded in one process on the card, must hold the
    parameters the ranks gathered, bit for bit. The ``fsdp`` fields of the
    K1 and K3 entries carry rank 0's launches.
+17. tp — GPT-2 124M at full width and depth, bf16, in phase 8's two
+   processes sharing the card under ``--partition tp --mesh-tensor 2``
+   (``transformer_partitioner(make_mesh(MeshSpec(data=1, tensor=2)))``):
+   both ranks take the same 8 rows, 4 steps and one validation batch
+   through ``Trainer.fit``, each rank holding its 6 of the 12 heads and
+   half of every MLP; then LLaMA 125M at full width, depth
+   ``LLAMA_TP_LAYERS``, 2 steps (its vocab-parallel embedding, head and
+   loss). Each is held to a one-process replicated run of the same rows
+   (``TP_LOSS_TOL``); each rank's K1 launches must be 12 x 5 / 12 x 4 at
+   6 heads, its tensor group's all-reduces 2 a layer in each forward and
+   each backward (LLaMA: 2 more forward, 1 more backward), and its
+   ``hbm_peak_bytes`` below the replicated run's. It prints the ranks'
+   step ms, ``hbm_peak_bytes`` and float32 state bytes against the
+   replicated run's, and the card's name and power limit; the TP run's
+   sharded checkpoint, loaded in one process on the card, must hold the
+   parameters the ranks gathered, bit for bit. The ``tp`` fields of the
+   K1 entries carry rank 0's GPT-2 launches.
 
 Each main path (serve, train, zero1, checkpoint, bert, vision, llama's
-train and serve, launch's world-1 epoch, decode's runs and fsdp's) runs
-with every launch count set to 0 just before it and read just after;
-launch's and fsdp's ranks count in their own processes, from 0.
+train and serve, launch's world-1 epoch, decode's runs, fsdp's and tp's)
+runs with every launch count set to 0 just before it and read just after;
+launch's, fsdp's and tp's ranks count in their own processes, from 0.
 
 The line before the last is a JSON object listing every ported kernel with
 its numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -4569,6 +4586,285 @@ def fsdp_check(torch, lines, ckpt_dir, smi_line):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 17. tp: GPT-2 124M and LLaMA under --partition tp --mesh-tensor 2
+# ---------------------------------------------------------------------------
+
+TP_WORLD, TP_ROWS, TP_STEPS = 2, 8, 4
+LLAMA_TP_LAYERS, LLAMA_TP_STEPS = 2, 2
+# TP against a replicated run of the same rows: both bf16, but a
+# row-parallel layer rounds each rank's half product to bf16 before the
+# float32 sum where one GEMM rounds once, so activations differ by bf16
+# ulps from the first layer on; phase 6's bound for two bf16 runs that
+# round differently (flash against plain attention)
+TP_LOSS_TOL = LOSS_TOL
+
+
+def tp_fit(kind: str, mesh=None, ckpt_dir=None) -> dict:
+    """One ``Trainer.fit`` of phase 17 on the card, Adam at lr 1e-3,
+    ``TP_ROWS`` rows a step: GPT-2 124M (``TP_STEPS`` steps and one
+    validation batch) or LLaMA at depth ``LLAMA_TP_LAYERS``
+    (``LLAMA_TP_STEPS`` steps), cut over ``mesh``'s tensor axis (None: one
+    replicated process). Returns the losses, step ms and peaks, launches,
+    the tensor group's collectives, ``hbm_peak_bytes``, the state's bytes
+    and the gathered parameters' digest."""
+    import torch
+
+    from distributed_pytorch_example_tpu_torch import interop
+    from distributed_pytorch_example_tpu_torch.data import (
+        DeviceLoader,
+        SyntheticTokenDataset,
+    )
+    from distributed_pytorch_example_tpu_torch.models import GPT2, Llama
+    from distributed_pytorch_example_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from distributed_pytorch_example_tpu_torch.parallel import (
+        TensorParallel,
+        tensor_parallel,
+        transformer_partitioner,
+    )
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        Trainer,
+        make_optimizer,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp = None if mesh is None else TensorParallel.from_mesh(mesh)
+    if kind == "gpt2":
+        model = GPT2(dtype=torch.bfloat16, logits_mode="hidden",
+                     device="cuda", seed=0, tensor_parallel=tp)
+        vocab, steps, val = 50257, TP_STEPS, True
+    else:
+        model = Llama(num_layers=LLAMA_TP_LAYERS, dtype=torch.bfloat16,
+                      logits_mode="hidden", device="cuda", seed=0,
+                      tensor_parallel=tp)
+        vocab, steps, val = LLAMA_VOCAB, LLAMA_TP_STEPS, False
+    train_ds = SyntheticTokenDataset(steps * TP_ROWS, seq_len=TRAIN_SEQ,
+                                     vocab_size=vocab, seed=0)
+    val_ds = SyntheticTokenDataset(TP_ROWS, seq_len=TRAIN_SEQ,
+                                   vocab_size=vocab, seed=1)
+    trainer = Trainer(model, CausalLMTask(),
+                      make_optimizer(model.parameters(), "adam", 1e-3),
+                      partitioner=(None if mesh is None
+                                   else transformer_partitioner(mesh)),
+                      log_every=steps, checkpoint_dir=ckpt_dir,
+                      checkpoint_format="sharded")
+    step_fn, losses, events, peaks = trainer.train_step, [], [], []
+
+    def timed(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        metrics = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(float(metrics["loss"]))
+        events.append((start, end))
+        return metrics
+
+    trainer.train_step = timed
+    reset_counts()
+    tensor_parallel.reset_counts()
+    trainer.fit(DeviceLoader(train_ds, TP_ROWS, device="cuda", seed=0,
+                             mesh=mesh),
+                DeviceLoader(val_ds, TP_ROWS, device="cuda", shuffle=False,
+                             mesh=mesh) if val else None, epochs=1)
+    torch.cuda.synchronize()
+    opt = trainer.state.optimizer.optimizer
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters()) + sum(
+        v.numel() * v.element_size() for st in opt.state.values()
+        for v in st.values() if isinstance(v, torch.Tensor) and v.dim())
+    params = (trainer.layout().params(gather=True) if mesh is not None
+              else interop.params_to_flax(model))
+    rec = {"losses": losses,
+           "step_ms": [s.elapsed_time(e) for s, e in events],
+           "step_peaks": peaks,
+           "launches": {"k1_fwd": flash_attention_fwd.launches,
+                        "k1_bwd": flash_attention_bwd.launches},
+           "tensor": dict(tensor_parallel.counts),
+           "hbm_peak_bytes": trainer.telemetry_summary["compiles"][
+               "train_step"]["hbm_peak_bytes"],
+           "params": sum(p.numel() for p in model.parameters()),
+           "state_bytes": state_bytes,
+           "params_sha256": tree_digest(params)}
+    del trainer, model, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_worker(ckpt_dir: str) -> int:
+    """One rank of phase 17 (started by :func:`tp_phase` with REPLICAS /
+    PROCESS_ID / MASTER_ADDR / MASTER_PORT set): GPT-2 under the mesh
+    data=1 x tensor=2, saving its sharded checkpoint in ``ckpt_dir``, then
+    LLaMA; prints one ``chip_smoke_tp`` JSON line."""
+    import torch.distributed
+
+    from distributed_pytorch_example_tpu_torch.runtime import (
+        MeshSpec,
+        distributed,
+        make_mesh,
+    )
+
+    distributed.initialize(device="cuda")
+    mesh = make_mesh(MeshSpec(data=1, tensor=TP_WORLD))
+    out = {"rank": distributed.process_index(),
+           "world": distributed.process_count(),
+           "backend": torch.distributed.get_backend(),
+           "gpt2": tp_fit("gpt2", mesh, ckpt_dir),
+           "llama": tp_fit("llama", mesh)}
+    print("chip_smoke_tp " + json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def tp_phase(torch, smi_line):
+    """Phase 17; returns rank 0's K1 forward / backward launches in the
+    GPT-2 TP run."""
+    t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        lines = tp_pair(ckpt_dir)
+        tp_check(torch, lines, ckpt_dir, smi_line)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    say("tp", f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    n = lines[0]["gpt2"]["launches"]
+    return n["k1_fwd"], n["k1_bwd"]
+
+
+def tp_pair(ckpt_dir):
+    port = free_port()
+    procs = []
+    for rank in range(TP_WORLD):
+        env = {**os.environ, "REPLICAS": str(TP_WORLD),
+               "PROCESS_ID": str(rank), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             ckpt_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = {}
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        found = [line for line in out.splitlines()
+                 if line.startswith("chip_smoke_tp ")]
+        check(proc.returncode == 0 and found,
+              f"tp: rank {rank} exit {proc.returncode}: {out[-3000:]}")
+        lines[rank] = json.loads(found[-1].split(" ", 1)[1])
+    return lines
+
+
+def tp_check(torch, lines, ckpt_dir, smi_line):
+    from distributed_pytorch_example_tpu_torch import interop
+    from distributed_pytorch_example_tpu_torch.models import GPT2
+    from distributed_pytorch_example_tpu_torch.train import (
+        CausalLMTask,
+        Trainer,
+        make_optimizer,
+    )
+    from distributed_pytorch_example_tpu_torch.train.checkpoint import (
+        LATEST_NAME,
+    )
+
+    say("tp", f"{TP_WORLD} processes on one card (backend "
+              f"{lines[0]['backend']}), mesh data=1 x tensor={TP_WORLD}, "
+              f"the same {TP_ROWS} rows on each; {smi_line}")
+    for kind in ("gpt2", "llama"):
+        ref = tp_fit(kind)  # one replicated process, the same rows
+        gpt = kind == "gpt2"
+        layers = LAYERS if gpt else LLAMA_TP_LAYERS
+        steps = TP_STEPS if gpt else LLAMA_TP_STEPS
+        passes = steps + 1 if gpt else steps
+        want_tensor = ({"forward": 2 * layers * passes,
+                        "backward": 2 * layers * steps} if gpt else
+                       {"forward": (2 * layers + 2) * passes,
+                        "backward": (2 * layers + 1) * steps})
+        check(lines[0][kind]["losses"] == lines[1][kind]["losses"],
+              f"tp {kind}: the ranks' losses differ: "
+              f"{lines[0][kind]['losses']} / {lines[1][kind]['losses']}")
+        for rank, r in lines.items():
+            got = r[kind]
+            losses = got["losses"]
+            check(len(losses) == steps and all(map(math.isfinite, losses)),
+                  f"tp {kind} rank {rank}: losses {losses}")
+            gap = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+            check(gap <= TP_LOSS_TOL,
+                  f"tp {kind} rank {rank}: losses {losses} vs the "
+                  f"replicated run's {ref['losses']}: gap {gap:.3e} > "
+                  f"{TP_LOSS_TOL}")
+            n = got["launches"]
+            check(n["k1_fwd"] == layers * passes
+                  and n["k1_bwd"] == layers * steps,
+                  f"tp {kind} rank {rank}: K1 launches {n['k1_fwd']} / "
+                  f"{n['k1_bwd']}, want {layers * passes} / "
+                  f"{layers * steps}")
+            check(got["tensor"] == want_tensor,
+                  f"tp {kind} rank {rank}: tensor-group collectives "
+                  f"{got['tensor']}, want {want_tensor}")
+            hbm = got["hbm_peak_bytes"]
+            check(hbm is not None and hbm < ref["hbm_peak_bytes"],
+                  f"tp {kind} rank {rank}: hbm_peak_bytes {hbm} not below "
+                  f"the replicated run's {ref['hbm_peak_bytes']}")
+            ms = sorted(got["step_ms"][1:])
+            say("tp", f"{kind} rank {rank}: losses "
+                      f"{[round(x, 5) for x in losses]} vs replicated "
+                      f"{[round(x, 5) for x in ref['losses']]} (gap "
+                      f"{gap:.3e}, tol {TP_LOSS_TOL}); step ms median "
+                      f"{ms[len(ms) // 2]:.2f} (steps 2+, {ms[0]:.2f}-"
+                      f"{ms[-1]:.2f}); launches K1 {n['k1_fwd']} / "
+                      f"{n['k1_bwd']}, tensor all-reduces "
+                      f"{got['tensor']}")
+            say("tp", f"{kind} rank {rank}: {got['params']:,} parameters "
+                      f"of {ref['params']:,}; float32 state "
+                      f"{got['state_bytes'] / 2**30:.3f} GiB against "
+                      f"{ref['state_bytes'] / 2**30:.3f}; hbm_peak_bytes "
+                      f"{hbm} ({hbm / 2**30:.3f} GiB) against replicated "
+                      f"{ref['hbm_peak_bytes']} "
+                      f"({ref['hbm_peak_bytes'] / 2**30:.3f} GiB); steps 2+ "
+                      f"peak {max(got['step_peaks'][1:]) / 2**30:.3f} GiB")
+        ms = sorted(ref["step_ms"][1:])
+        say("tp", f"{kind} replicated: step ms median {ms[len(ms) // 2]:.2f}"
+                  f" ({ms[0]:.2f}-{ms[-1]:.2f}), launches K1 "
+                  f"{ref['launches']['k1_fwd']} / {ref['launches']['k1_bwd']}")
+    digests = {r["gpt2"]["params_sha256"] for r in lines.values()}
+    check(len(digests) == 1, "tp: ranks gathered different parameters")
+    # the sharded checkpoint, loaded in one process on the card
+    model = GPT2(dtype=torch.bfloat16, logits_mode="hidden", device="cuda",
+                 seed=5)
+    trainer = Trainer(model, CausalLMTask(),
+                      make_optimizer(model.parameters(), "adam", 1e-3),
+                      telemetry=False)
+    t0 = time.perf_counter()
+    epoch, _ = trainer.load(os.path.join(ckpt_dir, LATEST_NAME))
+    load_s = time.perf_counter() - t0
+    got = tree_digest(interop.params_to_flax(model))
+    check(epoch == 1 and got in digests,
+          f"tp: the world-2 TP checkpoint loaded at world 1 (epoch {epoch}) "
+          "holds other parameters than the gathered ones")
+    say("tp", f"the sharded TP checkpoint loaded at world 1 in "
+              f"{load_s:.2f} s: parameters bit-equal to the gathered ones "
+              f"(sha256 {got[:16]})")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def free_port():
     import socket
 
@@ -4644,6 +4940,10 @@ def main() -> int:
                             fsdp_phase(torch, smi_line)):
             entry["fsdp"] = {"launches": n, "run": "phase 16, rank 0 of "
                                                    "the FSDP run"}
+        phase = "tp"
+        for entry, n in zip((k1_fwd, k1_bwd), tp_phase(torch, smi_line)):
+            entry["tp"] = {"launches": n, "run": "phase 17, rank 0 of the "
+                                                 "GPT-2 TP run (6 heads)"}
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} FAILED", file=sys.stderr)
@@ -4666,6 +4966,8 @@ if __name__ == "__main__":
         sys.exit(telemetry_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--fsdp-worker"]:
         sys.exit(fsdp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--launch-worker"]:
         sys.exit(launch_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -8,7 +8,10 @@ pair, with the JAX package's batch contract:
   Under a (data, fsdp) mesh (``runtime/mesh.py``) the process rank is
   the flat rank over (data, fsdp), row-major, so the batch splits over
   both axes as JAX's ``batch_spec`` ``P(("data", "fsdp"))`` splits it;
-  at ``fsdp = 1`` that is the data rank, as before;
+  at ``fsdp = 1`` that is the data rank, as before. Given the ``mesh``,
+  the loader shards over its data axes only, at the rank's flat index
+  there: under tensor parallelism every rank of a tensor group reads the
+  same rows, as JAX's batch spec replicates them over ``tensor``;
 - the final partial batch is padded by wrapping (``drop_last=True`` drops
   it), so every step has the same shape;
 - the batches and their order equal the JAX ``DeviceLoader``'s, element
@@ -32,6 +35,7 @@ import torch
 
 from distributed_pytorch_example_tpu_torch.data.sampler import ShardedSampler
 from distributed_pytorch_example_tpu_torch.runtime import distributed
+from distributed_pytorch_example_tpu_torch.runtime import mesh as mesh_lib
 from distributed_pytorch_example_tpu_torch.runtime.device import resolve_device
 
 # seconds the consumer waits for one prefetched batch before it gives up
@@ -67,9 +71,13 @@ class DeviceLoader:
         prefetch: int = 2,
         num_shards: Optional[int] = None,
         shard_id: Optional[int] = None,
+        mesh=None,
     ):
         self.dataset = dataset
         self.device = resolve_device(device)
+        if mesh is not None:
+            num_shards = mesh_lib.data_parallel_size(mesh)
+            shard_id = mesh_lib.data_index(mesh)
         if num_shards is None:
             num_shards = distributed.process_count()
         if shard_id is None:

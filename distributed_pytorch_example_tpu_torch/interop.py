@@ -36,7 +36,11 @@ tiles, buckets and quantization blocks exactly as the JAX package does.
 
 :func:`params_to_flax` and :func:`params_from_flax` carry a model's
 parameters (or, through :func:`grads_of`, its gradients) to and from the
-flax tree along those paths, as the checkpoint does;
+flax tree along those paths, as the checkpoint does. A model built under
+tensor parallelism (``parallel/tensor_parallel.py``) holds slices of
+some leaves: :func:`params_to_flax` gathers them whole over the tensor
+group (a collective: every rank of the group calls it) and
+:func:`params_from_flax` takes the rank's slice of each whole leaf;
 :func:`model_state_to_flax` and :func:`model_state_from_flax` carry the
 BatchNorm running statistics as the ``model_state`` collection
 ``{"batch_stats": {<path>: {"mean", "var"}}}`` (``{}`` for a model with
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 from distributed_pytorch_example_tpu_torch.models.batchnorm import BatchNorm
+from distributed_pytorch_example_tpu_torch.parallel import tensor_parallel
 
 def grads_of(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's gradients by parameter name, for
@@ -94,6 +99,10 @@ class FlaxLeaf:
         shape = tuple(int(s) for s in shape)
         return shape if self.perm is None else tuple(shape[i]
                                                      for i in self.perm)
+
+    def jax_dim(self, dim: int) -> int:
+        """The JAX layout's dim that is this parameter's torch ``dim``."""
+        return dim if self.perm is None else self.perm.index(dim)
 
     def from_jax(self, t: torch.Tensor) -> torch.Tensor:
         """A leaf in the JAX layout as this parameter's layout: a view."""
@@ -172,15 +181,28 @@ def params_to_flax(model: nn.Module,
     left out."""
     named = (dict(model.named_parameters()) if tensors is None
              else tensors)
+    leaves = [leaf for leaf in flax_leaves(model) if leaf.name in named]
+    values = tensor_parallel.gather_leaves(
+        [leaf.to_jax(named[leaf.name].detach()) for leaf in leaves],
+        tensor_dims(model, leaves), tensor_parallel.tensor_parallel_of(model))
     tree: dict = {}
-    for leaf in flax_leaves(model):
-        if leaf.name not in named:
-            continue
+    for leaf, value in zip(leaves, values):
         node = tree
         for key in leaf.path[:-1]:
             node = node.setdefault(key, {})
-        node[leaf.path[-1]] = leaf.to_jax(named[leaf.name].detach())
+        node[leaf.path[-1]] = value
     return tree
+
+
+def tensor_dims(model: nn.Module, leaves: Optional[List[FlaxLeaf]] = None
+                ) -> List[Optional[int]]:
+    """Per leaf (default: :func:`flax_leaves`), the JAX-layout dim that
+    the model's tensor axis cuts, or None for a whole leaf."""
+    if leaves is None:
+        leaves = flax_leaves(model)
+    dims = tensor_parallel.sharded_params(model)
+    return [None if leaf.name not in dims else leaf.jax_dim(dims[leaf.name])
+            for leaf in leaves]
 
 
 def _paths(node, prefix=()):
@@ -193,10 +215,11 @@ def _paths(node, prefix=()):
 
 @torch.no_grad()
 def _load(targets: List[Tuple[Tuple[str, ...], torch.Tensor]], tree: Mapping,
-          what: str, check_only: bool) -> None:
+          what: str, check_only: bool, cut=None) -> None:
     """Copy the leaves of ``tree`` at each target's path into the target
     (a view in the JAX layout), exactly; raises, before copying anything,
-    on a missing, extra or misshapen leaf."""
+    on a missing, extra or misshapen leaf. ``cut`` maps a path to the
+    function that takes a target's slice of its whole leaf."""
     extra = set(_paths(tree)) - {path for path, _ in targets}
     if extra:
         raise ValueError(f"checkpoint {what} hold leaves this model lacks: "
@@ -209,6 +232,8 @@ def _load(targets: List[Tuple[Tuple[str, ...], torch.Tensor]], tree: Mapping,
                 raise ValueError(f"checkpoint {what} lack {'/'.join(path)}")
             node = node[key]
         src = as_tensor(node)
+        if cut and path in cut:
+            src = cut[path](src)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"checkpoint {what} {'/'.join(path)}: shape "
                              f"{tuple(src.shape)}, this model's "
@@ -221,11 +246,17 @@ def _load(targets: List[Tuple[Tuple[str, ...], torch.Tensor]], tree: Mapping,
 
 def params_from_flax(model: nn.Module, tree: Mapping) -> None:
     """Copy a flax param tree (numpy arrays or tensors) into the model's
-    parameters, exactly; raises, before copying anything, on a missing,
-    extra or misshapen leaf."""
+    parameters, exactly (under tensor parallelism the rank's slice of each
+    cut leaf); raises, before copying anything, on a missing, extra or
+    misshapen leaf."""
     named = dict(model.named_parameters())
-    _load([(leaf.path, leaf.to_jax(named[leaf.name]))
-           for leaf in flax_leaves(model)], tree, "params", False)
+    leaves = flax_leaves(model)
+    tp = tensor_parallel.tensor_parallel_of(model)
+    cut = {leaf.path: (lambda src, d=dim: tensor_parallel.take(src, d, tp))
+           for leaf, dim in zip(leaves, tensor_dims(model, leaves))
+           if dim is not None}
+    _load([(leaf.path, leaf.to_jax(named[leaf.name])) for leaf in leaves],
+          tree, "params", False, cut)
 
 
 def _batch_stats(model: nn.Module

@@ -27,6 +27,15 @@ is read from a cursor that advances with it.
 
 Weights are drawn on the CPU from an explicit generator (``seed``) and
 copied to ``device``, so the same seed gives the same weights everywhere.
+
+``tensor_parallel`` (a ``parallel.tensor_parallel.TensorParallel``) cuts
+every block's attention heads and MLP over the tensor axis (``models/
+transformer.py``); the token table, which the head reuses, and the
+position table stay whole on every rank, as JAX's vocab rule leaves
+GPT-2's odd vocab of 50257 (the head's logits are the same on every
+rank). Dropout, ``remat``, decoding and a vocab the tensor size divides
+(which JAX's vocab rule would cut) are refused under it (ROADMAP.md
+queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -46,6 +55,9 @@ from distributed_pytorch_example_tpu_torch.models.transformer import (
     layer_norm,
     normal_,
     tied_head_logits,
+)
+from distributed_pytorch_example_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
 )
 from distributed_pytorch_example_tpu_torch.runtime.device import resolve_device
 
@@ -72,9 +84,19 @@ class GPT2(nn.Module):
         paged_verify: bool = False,
         device: Optional[Union[str, torch.device]] = None,
         seed: int = 0,
+        tensor_parallel: Optional[TensorParallel] = None,
         **stack_kw,
     ):
         super().__init__()
+        tp = tensor_parallel or TensorParallel()
+        if tp.size > 1 and (dropout_rate or stack_kw.get("remat")
+                            or vocab_size % tp.size == 0):
+            raise NotImplementedError(
+                "dropout, remat and a tied vocab-parallel table (a vocab "
+                "the tensor size divides) under tensor parallelism are not "
+                "ported to the PyTorch package yet; see ROADMAP.md queue 1, "
+                "item 11")
+        self.tensor_parallel = tp
         if paged_num_blocks > 0 and not decode:
             raise ValueError(
                 "paged_num_blocks > 0 (paged KV cache) requires decode=True"
@@ -110,7 +132,7 @@ class GPT2(nn.Module):
                 paged_num_blocks=paged_num_blocks,
                 paged_block_size=paged_block_size,
                 paged_max_blocks=paged_max_blocks, dropout_rate=dropout_rate,
-                **stack_kw,
+                tensor_parallel=tp, **stack_kw,
             )
             self.final_ln = nn.LayerNorm(model_dim, eps=1e-5)
         self.to_empty(device=dev)

@@ -26,6 +26,19 @@ dropout (:func:`dropout`) and per-block rematerialisation (``remat``).
 Not in it, and refused when asked for: mixture-of-experts MLPs and
 sequence parallelism.
 
+Tensor parallelism (``tensor_parallel``, a ``parallel.tensor_parallel.
+TensorParallel`` of size above 1): attention keeps ``num_heads / size``
+query and ``num_kv_heads / size`` kv heads, the rank's, with ``q/k/v``
+column-parallel and ``o`` row-parallel, and the MLP ``mlp_dim / size`` of
+its hidden features, ``up`` column- and ``down`` row-parallel (JAX's
+``TRANSFORMER_TP_RULES``); the collectives are ``copy_to_tensor`` before
+the column-parallel layers and ``reduce_from_tensor`` after the
+row-parallel ones, and the row-parallel bias is added once, after the
+sum. A size that does not divide the heads, the kv heads and ``mlp_dim``
+is refused. The initialisers draw each sharded weight whole and keep the
+rank's slice (:func:`lecun_normal_`'s ``shard``), so the weights equal
+the slices of the replicated model's.
+
 Dropout masks are drawn from a generator seeded from the forward call's
 ``draw`` (model seed, train step, process, call in the step; see
 :class:`DropoutDraws`) and the site (layer, site in the layer), never from
@@ -52,6 +65,12 @@ from distributed_pytorch_example_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
 )
 from distributed_pytorch_example_tpu_torch.ops.rope import rope
+from distributed_pytorch_example_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+    copy_to_tensor,
+    reduce_from_tensor,
+    take,
+)
 from distributed_pytorch_example_tpu_torch.runtime import distributed
 
 
@@ -62,29 +81,50 @@ def _not_in_slice(what: str) -> NotImplementedError:
     )
 
 
+Shard = Optional[Tuple[int, TensorParallel]]
+
+
+def _whole_shape(param: torch.Tensor, shard: Shard) -> Tuple[int, ...]:
+    """The shape of the whole parameter of which ``param`` is the slice
+    ``shard`` = (torch dim, tensor axis) names (``param``'s own without)."""
+    shape = list(param.shape)
+    if shard is not None:
+        shape[shard[0]] *= shard[1].size
+    return tuple(shape)
+
+
+def _copy_in(param: torch.Tensor, cpu: torch.Tensor, shard: Shard) -> None:
+    if shard is not None:
+        cpu = take(cpu, shard[0], shard[1])
+    with torch.no_grad():
+        param.copy_(cpu)
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
-                  fan_in: Optional[int] = None) -> None:
+                  fan_in: Optional[int] = None, shard: Shard = None) -> None:
     """flax's ``lecun_normal`` (truncated normal, variance 1/fan_in) for a
     torch ``Linear`` weight (out, in) or ``Conv2d`` weight (out, in, h, w):
     fan_in defaults to the product of every dimension after the first.
     Drawn on the CPU from ``generator`` and copied in, so the weights do
-    not depend on the device."""
+    not depend on the device. With ``shard`` = (dim, tensor axis) the
+    weight is this rank's slice: the whole weight is drawn (fan_in its
+    own) and the slice kept."""
+    shape = _whole_shape(weight, shard)
     if fan_in is None:
-        fan_in = math.prod(weight.shape[1:])
+        fan_in = math.prod(shape[1:])
     # 0.8796... = std of a unit normal truncated to [-2, 2]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    cpu = torch.empty(weight.shape, dtype=torch.float32)
+    cpu = torch.empty(shape, dtype=torch.float32)
     nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
-    with torch.no_grad():
-        weight.copy_(cpu)
+    _copy_in(weight, cpu, shard)
 
 
-def normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    cpu = torch.empty(param.shape, dtype=torch.float32)
+def normal_(param: torch.Tensor, std: float, generator: torch.Generator,
+            shard: Shard = None) -> None:
+    cpu = torch.empty(_whole_shape(param, shard), dtype=torch.float32)
     nn.init.normal_(cpu, std=std, generator=generator)
-    with torch.no_grad():
-        param.copy_(cpu)
+    _copy_in(param, cpu, shard)
 
 
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -92,6 +132,38 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     to ``dtype``, the product in ``dtype``."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def row_dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+              tp: Optional[TensorParallel]) -> torch.Tensor:
+    """:func:`dense` of a row-parallel layer: the rank's partial product,
+    summed over the tensor group, then the (replicated) bias once."""
+    if tp is None or tp.size == 1:
+        return dense(lin, x, dtype)
+    out = reduce_from_tensor(F.linear(x.to(dtype), lin.weight.to(dtype)), tp)
+    return out if lin.bias is None else out + lin.bias.to(dtype)
+
+
+def column_row_dims(column: Tuple[str, ...], row: Tuple[str, ...],
+                    tp: Optional[TensorParallel]) -> dict:
+    """``tensor_dims`` of a block whose ``column`` Linears are cut on
+    their outputs (weight dim 0, and their biases) and ``row`` Linears on
+    their inputs (weight dim 1; the bias stays whole); empty without
+    tensor parallelism."""
+    if tp is None or tp.size == 1:
+        return {}
+    dims = {}
+    for name in column:
+        dims.update({f"{name}.weight": 0, f"{name}.bias": 0})
+    dims.update({f"{name}.weight": 1 for name in row})
+    return dims
+
+
+def tp_shard(module: nn.Module, name: str):
+    """The ``shard`` argument of the initialisers for ``module``'s
+    parameter ``name`` (None when it is whole)."""
+    dim = getattr(module, "tensor_dims", {}).get(name)
+    return None if dim is None else (dim, module.tensor_parallel)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
@@ -203,6 +275,7 @@ class MultiHeadAttention(nn.Module):
         paged_num_blocks: int = 0,
         paged_block_size: int = 16,
         paged_max_blocks: int = 0,
+        tensor_parallel: Optional[TensorParallel] = None,
     ):
         super().__init__()
         kv_heads = num_kv_heads or num_heads
@@ -211,6 +284,17 @@ class MultiHeadAttention(nn.Module):
                              f"num_kv_heads {kv_heads}")
         if decode and not causal:
             raise ValueError("decode mode supports causal attention only")
+        tp = tensor_parallel or TensorParallel()
+        if decode and tp.size > 1:
+            raise NotImplementedError(
+                "decoding under tensor parallelism (generate(partitioner=), "
+                "the serving mesh) is not ported to the PyTorch package yet; "
+                "see ROADMAP.md queue 1, item 11")
+        # this rank's heads: the Megatron split of JAX's column rules
+        num_heads = tp.split(num_heads, "num_heads")
+        kv_heads = tp.split(kv_heads, "num_kv_heads")
+        self.tensor_parallel = tp
+        self.tensor_dims = column_row_dims(("q", "k", "v"), ("o",), tp)
         self.num_heads, self.head_dim = num_heads, head_dim
         self.num_kv_heads = kv_heads
         self.causal = causal
@@ -245,8 +329,10 @@ class MultiHeadAttention(nn.Module):
                                  persistent=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for lin in (self.q, self.k, self.v, self.o):
-            lecun_normal_(lin.weight, generator)
+        for name in ("q", "k", "v", "o"):
+            lin = getattr(self, name)
+            lecun_normal_(lin.weight, generator,
+                          shard=tp_shard(self, f"{name}.weight"))
             nn.init.zeros_(lin.bias)
         if self.paged_num_blocks > 0:
             self.pages_k.zero_()
@@ -274,6 +360,7 @@ class MultiHeadAttention(nn.Module):
                 draw=None, site=(0, 0), verify=False):
         batch, seq = x.shape[0], x.shape[1]
         dt = self.dtype
+        x = copy_to_tensor(x, self.tensor_parallel)
         q = dense(self.q, x, dt).reshape(batch, seq, self.num_heads,
                                          self.head_dim)
         kv_shape = (batch, seq, self.num_kv_heads, self.head_dim)
@@ -309,7 +396,8 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, kv_mask=kv_mask, causal=self.causal,
                 use_flash=self.use_flash,
             )
-        out = dense(self.o, out.reshape(batch, seq, -1), dt)
+        out = row_dense(self.o, out.reshape(batch, seq, -1), dt,
+                        self.tensor_parallel)
         return dropout(out, self.dropout_rate, draw, site)
 
     def _decode_step(self, q, k, v, positions):
@@ -399,22 +487,31 @@ class MlpBlock(nn.Module):
 
     def __init__(self, mlp_dim: int, model_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0,
+                 tensor_parallel: Optional[TensorParallel] = None):
         super().__init__()
+        tp = tensor_parallel or TensorParallel()
+        mlp_dim = tp.split(mlp_dim, "mlp_dim")
+        self.tensor_parallel = tp
+        self.tensor_dims = column_row_dims(("up",), ("down",), tp)
         self.up = nn.Linear(model_dim, mlp_dim)
         self.down = nn.Linear(mlp_dim, model_dim)
         self.dtype = dtype
         self.dropout_rate = dropout_rate
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for lin in (self.up, self.down):
-            lecun_normal_(lin.weight, generator)
+        for name in ("up", "down"):
+            lin = getattr(self, name)
+            lecun_normal_(lin.weight, generator,
+                          shard=tp_shard(self, f"{name}.weight"))
             nn.init.zeros_(lin.bias)
 
     def forward(self, x, *, draw=None, site=(0, 0)):
+        x = copy_to_tensor(x, self.tensor_parallel)
         h = F.gelu(dense(self.up, x, self.dtype), approximate="tanh")
-        return dropout(dense(self.down, h, self.dtype), self.dropout_rate,
-                       draw, site)
+        return dropout(row_dense(self.down, h, self.dtype,
+                                 self.tensor_parallel),
+                       self.dropout_rate, draw, site)
 
 
 class TransformerBlock(nn.Module):
@@ -435,6 +532,7 @@ class TransformerBlock(nn.Module):
         dropout_rate: float = 0.0,
         layer_norm_epsilon: float = 1e-5,
         dtype: torch.dtype = torch.float32,
+        tensor_parallel: Optional[TensorParallel] = None,
         **attn_kw,
     ):
         super().__init__()
@@ -443,8 +541,10 @@ class TransformerBlock(nn.Module):
         self.dtype = dtype
         self.attn = MultiHeadAttention(num_heads, head_dim, model_dim,
                                        dtype=dtype, dropout_rate=dropout_rate,
+                                       tensor_parallel=tensor_parallel,
                                        **attn_kw)
-        self.mlp = MlpBlock(mlp_dim, model_dim, dtype, dropout_rate)
+        self.mlp = MlpBlock(mlp_dim, model_dim, dtype, dropout_rate,
+                            tensor_parallel)
         self.ln1 = nn.LayerNorm(model_dim, eps=layer_norm_epsilon)
         self.ln2 = nn.LayerNorm(model_dim, eps=layer_norm_epsilon)
 

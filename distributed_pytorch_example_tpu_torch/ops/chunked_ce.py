@@ -15,6 +15,15 @@ the (N, V) float32 logits never exist at once (~3.3 GB at GPT-2's 16 x
   (on the TPU, JAX's default-precision float32 matmul rounds its operands
   to bf16 the same way); with ``dtype=float32`` it is float32 throughout.
 
+Vocab-parallel form (``tensor_parallel``, a head sharded over the
+vocab: LLaMA's ``lm_head`` under tensor parallelism): each rank's blocks
+cover only its rows ``vocab_start`` on; the per-row max, sum of
+exponentials, target logit and first-occurrence argmax of every rank are
+combined in one all-gather over the tensor group (the same arithmetic on
+every rank, in rank order), so the loss equals the whole-vocab one; the
+backward stays local, and the hidden states' gradient is summed over the
+group by ``copy_to_tensor`` (``parallel/tensor_parallel.py``).
+
 In JAX this is XLA code, not a Pallas kernel, so plain torch is its port.
 """
 
@@ -23,6 +32,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from distributed_pytorch_example_tpu_torch.parallel import (
+    tensor_parallel as tensor_parallel_lib,
+)
+from distributed_pytorch_example_tpu_torch.runtime import distributed
 
 DEFAULT_BLOCK = 4096
 
@@ -58,9 +72,29 @@ def _target_in_block(targets, off, width):
     return hit, (targets - off).clamp(0, width - 1)
 
 
+def _combine(m, s, tl, best_v, best_i, tp):
+    """The whole vocab's ``(lse, target logit, argmax)`` from every tensor
+    rank's partial statistics over its vocab rows: one all-gather, then
+    the same combination on every rank."""
+    mine = torch.stack([m, s, tl, best_v, best_i.to(torch.float64)])
+    rows = distributed.all_gather_tiled(mine.to(torch.float64)[None],
+                                        group=tp.group)  # (T, 5, n)
+    tensor_parallel_lib.counts["forward"] += 1
+    ms, ss, tls, bvs, bis = rows.unbind(1)
+    top = ms.max(0).values
+    total = (ss * torch.exp(ms - top)).sum(0)
+    # the first rank holding the largest logit: the lowest vocab id
+    rank = bvs.argmax(0)
+    best = bis.gather(0, rank[None])[0].long()
+    return ((top + torch.log(total)).float(), tls.sum(0).float(), best)
+
+
 class _ChunkedXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, embedding, bias, targets, block_size, dtype):
+    def forward(ctx, x, embedding, bias, targets, block_size, dtype,
+                tp=None, vocab_start=0):
+        if tp is not None:  # this rank's rows are ids vocab_start on
+            targets = targets - vocab_start
         n = x.shape[0]
         dev = x.device
         m = torch.full((n,), float("-inf"), device=dev)
@@ -81,7 +115,11 @@ class _ChunkedXent(torch.autograd.Function):
             better = bm > best_v
             best_v = torch.where(better, bm, best_v)
             best_i = torch.where(better, bi + off, best_i)
-        lse = m + torch.log(s)
+        if tp is None:
+            lse = m + torch.log(s)
+        else:
+            lse, tl, best_i = _combine(m, s, tl, best_v,
+                                       best_i + vocab_start, tp)
         ctx.save_for_backward(x, embedding, bias, targets, lse)
         ctx.block_size, ctx.dtype = block_size, dtype
         ctx.mark_non_differentiable(best_i)
@@ -111,7 +149,8 @@ class _ChunkedXent(torch.autograd.Function):
             if db is not None:
                 db[off:off + width] = gmat.sum(0)
         return (dx.to(x.dtype), de.to(embedding.dtype),
-                None if db is None else db.to(bias.dtype), None, None, None)
+                None if db is None else db.to(bias.dtype), None, None, None,
+                None, None)
 
 
 def chunked_softmax_xent(
@@ -122,6 +161,8 @@ def chunked_softmax_xent(
     bias: Optional[torch.Tensor] = None,
     block_size: int = DEFAULT_BLOCK,
     dtype: torch.dtype = torch.bfloat16,
+    tensor_parallel: Optional[tensor_parallel_lib.TensorParallel] = None,
+    vocab_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused tied-head matmul + softmax cross-entropy, blockwise over vocab.
 
@@ -132,6 +173,10 @@ def chunked_softmax_xent(
       bias: optional (V,) logit bias.
       block_size: vocab block width; peak live logits are (N, block) f32.
       dtype: matmul operand dtype; accumulation is always float32.
+      tensor_parallel: the tensor axis of a head sharded over the vocab:
+        ``embedding`` holds this rank's rows, ids ``vocab_start`` on (the
+        vocab-parallel form of the module docstring); None: the whole
+        vocab.
 
     Returns:
       ``(loss, argmax)``: per-position float32 cross-entropy of shape (...)
@@ -151,6 +196,9 @@ def chunked_softmax_xent(
         )
     x = hidden.reshape(-1, dim).to(dtype)
     t = targets.reshape(-1).long()
+    if tensor_parallel is not None:
+        x = tensor_parallel_lib.copy_to_tensor(x, tensor_parallel)
     loss, argmax = _ChunkedXent.apply(x, embedding, bias, t, int(block_size),
-                                      dtype)
+                                      dtype, tensor_parallel,
+                                      int(vocab_start))
     return loss.reshape(lead), argmax.reshape(lead)

@@ -27,8 +27,17 @@ Two families are served, each lowered from a ``PlanSpec``
   to the last, no size floor); the step gathers the parameters and
   reduce-scatters the gradients (``train/optimizers.py`` ``FSDPUpdate``).
 
-Tensor parallelism (``parallel/partition.py``) and the multi-slice mesh
-are not ported (ROADMAP.md queue 1, item 11).
+- **transformer**: Megatron tensor parallelism, JAX's
+  ``TRANSFORMER_TP_RULES`` (``parallel/partition.py``) plus the
+  vocab-parallel embedding and head: column-parallel ``q/k/v/up/gate``
+  on their output dim, row-parallel ``o/down`` on their input dim, a
+  vocab the tensor size divides on ``tensor``, every other leaf
+  replicated; the batch splits over the data axes only, and a tensor
+  group's ranks read the same rows. The layers hold only their slices
+  and place the collectives themselves (``parallel/tensor_parallel.py``);
+  :meth:`Partitioner.tensor_dim` is the dim the axis cuts.
+
+The multi-slice mesh is not ported (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -108,7 +117,8 @@ class Partitioner:
     collectives' payload policy to the step; ``fsdp_axis`` names the axis
     whose parameters the step keeps sharded between steps (set by
     ``PlanSpec(family="fsdp").lower``; None: the parameters are
-    replicated)."""
+    replicated); ``tensor_axis`` the axis the model's layers are cut over
+    (set by ``PlanSpec(family="transformer").lower``)."""
 
     def __init__(
         self,
@@ -120,6 +130,7 @@ class Partitioner:
         opt_shard_min_size: int = DEFAULT_OPT_SHARD_MIN_SIZE,
         wire=None,
         fsdp_axis: Optional[str] = None,
+        tensor_axis: Optional[str] = None,
     ):
         if not isinstance(mesh, mesh_lib.Mesh):
             world = distributed.process_count() if mesh is None else mesh
@@ -133,6 +144,7 @@ class Partitioner:
         self.opt_shard_min_size = opt_shard_min_size
         self.wire = wire
         self.fsdp_axis = fsdp_axis
+        self.tensor_axis = tensor_axis
 
     @property
     def world(self) -> int:
@@ -141,11 +153,15 @@ class Partitioner:
 
     @property
     def mesh_shape(self) -> Dict[str, int]:
-        """The batch axes' sizes: ``{"data": world}`` for the data family,
-        ``{"data": D, "fsdp": F}`` once ``fsdp`` is above 1 (the sharded
-        checkpoint's stamped axes)."""
-        return {a: self.mesh.shape[a] for a in mesh_lib.data_axes(self.mesh)
-                if a == "data" or self.mesh.shape[a] > 1}
+        """The stamped axes of a checkpoint: ``{"data": world}`` for the
+        data family, ``{"data": D, "fsdp": F}`` once ``fsdp`` is above 1,
+        ``{"data": D, "tensor": T}`` under tensor parallelism."""
+        shape = {a: self.mesh.shape[a] for a in mesh_lib.data_axes(self.mesh)
+                 if a == "data" or self.mesh.shape[a] > 1}
+        if self.tensor_axis is not None and self.mesh.shape[
+                self.tensor_axis] > 1:
+            shape[self.tensor_axis] = self.mesh.shape[self.tensor_axis]
+        return shape
 
     # -- specs (JAX's Partitioner) -----------------------------------------
 
@@ -227,16 +243,28 @@ class Partitioner:
         replicated leaf."""
         return {path: self.zero1_dim(shape) for path, shape in shapes.items()}
 
-    def fsdp_dim(self, path: str, shape: Sequence[int]) -> Optional[int]:
-        """The dim of the leaf at ``path`` that the FSDP axis shards, or
-        None (replicated, or no FSDP axis)."""
-        if self.fsdp_axis is None:
+    def _axis_dim(self, axis: Optional[str], path: str,
+                  shape: Sequence[int]) -> Optional[int]:
+        if axis is None:
             return None
         for dim, entry in enumerate(self._base_spec(path, tuple(shape))):
             axes = entry if isinstance(entry, tuple) else (entry,)
-            if self.fsdp_axis in axes:
+            if axis in axes:
                 return dim
         return None
+
+    def fsdp_dim(self, path: str, shape: Sequence[int]) -> Optional[int]:
+        """The dim of the leaf at ``path`` that the FSDP axis shards, or
+        None (replicated, or no FSDP axis)."""
+        return self._axis_dim(self.fsdp_axis, path, shape)
+
+    def tensor_dim(self, path: str, shape: Sequence[int]) -> Optional[int]:
+        """The dim of the leaf at ``path`` (of whole JAX-layout ``shape``)
+        that the tensor axis cuts, or None (replicated, or no tensor
+        axis)."""
+        if self.tensor_axis is None or self.mesh.shape[self.tensor_axis] == 1:
+            return None
+        return self._axis_dim(self.tensor_axis, path, shape)
 
     def sync_dims(self, shapes: Mapping[str, Sequence[int]]
                   ) -> Dict[str, Optional[int]]:
@@ -258,7 +286,7 @@ class Partitioner:
         mesh stamp: the spec's entries padded to the leaf's rank, and the
         ZeRO-1 dim of an opt-state leaf (else None)."""
         shape = tuple(int(s) for s in shape)
-        if self.fsdp_axis is not None:
+        if self.fsdp_axis is not None or self.tensor_axis is not None:
             spec = list(self.spec_for(path, shape))
             if all(e is None for e in spec):
                 return [], None

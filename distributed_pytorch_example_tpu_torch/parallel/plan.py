@@ -8,11 +8,12 @@ the ZeRO-1 overlay, the wire policy, bucketing and gradient accumulation:
 
 ``lower()`` is the one place partition rules are built; the factories
 ``data_parallel`` and ``fsdp`` (``parallel/api.py``) are one-line
-lowerings of a PlanSpec, as in JAX. The port serves the families
-``data`` and ``fsdp``; ``family="transformer"`` (tensor, pipeline and
-expert parallelism through ``parallel/partition.py``) and ``fsdp_rest``
-are refused until ROADMAP.md queue 1 item 11 ports them. The JAX
-planner that scores PlanSpecs (``--auto-mesh``) waits on item 16.
+lowerings of a PlanSpec, as in JAX. The port serves the three
+families: ``data``, ``fsdp`` and ``transformer`` (Megatron tensor
+parallelism: ``parallel/partition.py``'s rules plus the vocab-parallel
+embedding and head). ``fsdp_rest`` and ZeRO-1 under ``transformer`` are
+refused until ROADMAP.md queue 1 item 11 ports them. The JAX planner that
+scores PlanSpecs (``--auto-mesh``) waits on item 16.
 """
 
 from __future__ import annotations
@@ -33,9 +34,8 @@ from distributed_pytorch_example_tpu_torch.runtime.mesh import (
     make_mesh,
 )
 
-# the JAX package's families; the port lowers the first two
+# the JAX package's families
 FAMILIES: Tuple[str, ...] = ("data", "fsdp", "transformer")
-SERVED = ("data", "fsdp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,12 +72,11 @@ class PlanSpec:
             raise ValueError(
                 f"unknown plan family {self.family!r}; expected one of {FAMILIES}"
             )
-        if self.family not in SERVED or self.fsdp_rest:
+        if self.fsdp_rest or (self.family == "transformer" and self.zero1):
             raise NotImplementedError(
                 f"PlanSpec(family={self.family!r}, fsdp_rest="
-                f"{self.fsdp_rest}) needs tensor parallelism "
-                "(parallel/partition.py), not ported to the PyTorch package "
-                "yet; see ROADMAP.md queue 1, item 11")
+                f"{self.fsdp_rest}, zero1={self.zero1}) is not ported to "
+                "the PyTorch package yet; see ROADMAP.md queue 1, item 11")
         if self.family == "fsdp" and self.zero1:
             raise ValueError("zero1 is redundant under family 'fsdp' (FSDP "
                              "already shards optimizer state with the "
@@ -97,9 +96,40 @@ class PlanSpec:
                                                         mesh)),),
                 default=P(), opt_shard_min_size=self.opt_shard_min_size,
                 wire=wire, fsdp_axis=self.fsdp_axis)
+        if self.family == "transformer":
+            return Partitioner(
+                mesh, rules=self._transformer_rules(mesh), default=P(),
+                opt_shard_min_size=self.opt_shard_min_size, wire=wire,
+                tensor_axis="tensor")
         return Partitioner(mesh, dp_shard_opt_state=self.zero1,
                            opt_shard_min_size=self.opt_shard_min_size,
                            wire=wire)
+
+    @staticmethod
+    def _transformer_rules(mesh) -> list:
+        """JAX's Megatron table plus the shape-dependent vocab-parallel
+        embedding and head: the vocab dim on ``tensor`` where the tensor
+        size divides it, else replicated (the default)."""
+        from distributed_pytorch_example_tpu_torch.parallel.partition import (
+            TRANSFORMER_TP_RULES,
+        )
+
+        tsize = mesh.shape["tensor"]
+
+        def vocab_embed(shape):  # (V, D)
+            if tsize > 1 and shape and shape[0] % tsize == 0:
+                return P("tensor", None)
+            return P()
+
+        def vocab_head(shape):  # (D, V)
+            if tsize > 1 and shape and shape[-1] % tsize == 0:
+                return P(None, "tensor")
+            return P()
+
+        return list(TRANSFORMER_TP_RULES) + [
+            (r"(wte|tok_embed)/embedding$", vocab_embed),
+            (r"lm_head$", vocab_head),
+        ]
 
     # -- identity / serialization ------------------------------------------
 

@@ -13,8 +13,9 @@ Axis vocabulary (the JAX package's):
 - ``fsdp``     — data parallelism whose parameters and optimizer state are
   sharded; the batch is sharded over (data, fsdp) jointly;
 - ``tensor``, ``sequence``, ``expert``, ``pipe`` — tensor, sequence,
-  expert and pipeline parallelism. The port's steps serve ``data`` and
-  ``fsdp``; the CLI refuses the others above 1 (ROADMAP.md items 11, 15).
+  expert and pipeline parallelism. The port's steps serve ``data``,
+  ``fsdp`` and ``tensor``; the CLI refuses the others above 1 (ROADMAP.md
+  item 15).
 
 ``MeshSpec`` sizes multiply to the rank count; -1 means "absorb the rest"
 (at most one axis). The multi-slice ("hybrid") layout of the JAX package,
@@ -182,3 +183,28 @@ def data_axes(mesh) -> Sequence[str]:
 
 def data_parallel_size(mesh) -> int:
     return math.prod(mesh.shape[a] for a in data_axes(mesh))
+
+
+def data_index(mesh) -> int:
+    """This rank's flat index over the data axes, row-major: the batch
+    shard it reads (every rank of one tensor group reads the same)."""
+    index = 0
+    for axis in data_axes(mesh):
+        index = index * mesh.shape[axis] + mesh.axis_index(axis)
+    return index
+
+
+def data_group(mesh):
+    """``(group, size)`` of this rank's set over the data axes: the ranks
+    that split the batch and average the gradients (None: the default
+    group, whose ranks are every rank, or size 1: no collective)."""
+    size = data_parallel_size(mesh)
+    if size in (1, mesh.size):
+        return None, size
+    axes = [a for a in data_axes(mesh) if mesh.shape[a] > 1]
+    if len(axes) > 1:
+        raise NotImplementedError(
+            "a batch split over both data and fsdp beside another axis is "
+            "not ported to the PyTorch package yet; see ROADMAP.md queue 1, "
+            "item 11")
+    return mesh.group(axes[0]), size

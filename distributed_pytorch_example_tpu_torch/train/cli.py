@@ -31,8 +31,13 @@ and the gradients are averaged across processes every step.
 processes out on a (data, fsdp) mesh (``--mesh-data`` -1 takes the rest)
 and shards every parameter and its moments over ``fsdp``: the step
 gathers the parameters and reduce-scatters the gradients (on the card
-through the ring kernels). ``--partition tp`` and the other mesh axes
-are refused (ROADMAP.md queue 1, items 11 and 15). ``--zero1``
+through the ring kernels). ``--partition tp --mesh-tensor T`` (``--model
+gpt2|llama``) lays them out on a (data, tensor) mesh and cuts every
+block's attention heads and MLP over ``tensor`` (Megatron tensor
+parallelism; LLaMA's token table, head and loss over the vocab too): a
+tensor group's ranks read the same rows, and the batch splits over
+``data``. The other mesh axes are refused (ROADMAP.md queue 1, item
+15). ``--zero1``
 shards the optimizer state across the processes, ``--wire`` compresses the
 gradient collectives, ``--overlap-buckets`` fuses them into buckets (on
 the card, the ring kernels carry them), and ``--grad-accum k`` applies the
@@ -82,9 +87,11 @@ from distributed_pytorch_example_tpu_torch.data import (
 from distributed_pytorch_example_tpu_torch.data.vision import data_root
 from distributed_pytorch_example_tpu_torch.models import get_model
 from distributed_pytorch_example_tpu_torch.parallel import (
+    TensorParallel,
     WireConfig,
     data_parallel,
     fsdp,
+    transformer_partitioner,
 )
 from distributed_pytorch_example_tpu_torch.parallel.wire import (
     DEFAULT_BUCKET_BYTES,
@@ -190,11 +197,15 @@ def augment(args, train_ds, global_batch: int):
 
 
 def build_model(args, device: torch.device,
-                image_size: Optional[int] = None):
+                image_size: Optional[int] = None,
+                tensor_parallel: Optional[TensorParallel] = None):
     """The model of ``--model``; ``image_size`` (ViT's position table)
-    defaults to ``--image-size``."""
+    defaults to ``--image-size``; ``tensor_parallel`` cuts a transformer
+    LM over the tensor axis (``--partition tp``)."""
     kw = dict(dtype=torch.bfloat16 if args.dtype == "bfloat16"
               else torch.float32, device=device, seed=args.seed)
+    if tensor_parallel is not None:
+        kw["tensor_parallel"] = tensor_parallel
     if args.model in ("mlp",) + _VISION:
         kw["num_classes"] = args.num_classes
     if args.model in _TRANSFORMERS:
@@ -219,8 +230,34 @@ def build_task(args, model):
     return CausalLMTask()
 
 
-# the models that one CPU test holds against the JAX package's fsdp
+# the models that one CPU test holds against the JAX package's fsdp, and
+# its transformer_partitioner
 _FSDP_MODELS = ("mlp", "gpt2")
+_TP_MODELS = ("gpt2",) + _LLAMA
+
+
+def check_tensor_partition(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` on what ``--partition tp`` does not serve yet,
+    naming ROADMAP.md item 11."""
+    if args.model not in _TP_MODELS:
+        parser.error(f"--partition tp of --model {args.model} is not ported "
+                     "to the PyTorch package yet (the port's tensor "
+                     f"parallelism serves {'|'.join(_TP_MODELS)}); see "
+                     "ROADMAP.md queue 1, item 11")
+    refused = [
+        ("--zero1", args.zero1),
+        (f"--optimizer {args.optimizer}",
+         args.optimizer in ("lamb", "adafactor")),
+        ("--wire / --wire-param-gather", args.wire != "none"
+         or args.wire_param_gather != "float32"),
+        ("--overlap-buckets", args.overlap_buckets != 0),
+        ("--remat", args.remat),
+    ]
+    for flag, bad in refused:
+        if bad:
+            parser.error(f"{flag} under --partition tp is not ported to the "
+                         "PyTorch package yet; see ROADMAP.md queue 1, "
+                         "item 11")
 
 
 def check_partition(parser: argparse.ArgumentParser, args) -> None:
@@ -230,14 +267,15 @@ def check_partition(parser: argparse.ArgumentParser, args) -> None:
     if args.partition not in ("dp", "fsdp", "tp"):
         parser.error(f"--partition must be dp|fsdp|tp, got "
                      f"{args.partition!r}")
+    if args.partition != "tp" and args.mesh_tensor != 1:
+        parser.error("--mesh-tensor above 1 needs --partition tp in the "
+                     "PyTorch package; see ROADMAP.md queue 1, item 11")
+    if args.partition != "fsdp" and args.mesh_fsdp != 1:
+        parser.error("--mesh-fsdp above 1 needs --partition fsdp in the "
+                     "PyTorch package; see ROADMAP.md queue 1, item 11")
     if args.partition == "tp":
-        parser.error("--partition tp (tensor parallelism, parallel/"
-                     "partition.py) is not ported to the PyTorch package "
-                     "yet; see ROADMAP.md queue 1, item 11")
+        check_tensor_partition(parser, args)
     if args.partition != "fsdp":
-        if args.mesh_fsdp != 1:
-            parser.error("--mesh-fsdp above 1 needs --partition fsdp in the "
-                         "PyTorch package; see ROADMAP.md queue 1, item 11")
         return
     # JAX train.py:350-355
     if args.zero1:
@@ -292,14 +330,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     world = dist.process_count()
+    spec = MeshSpec(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                    tensor=args.mesh_tensor)
     try:
-        MeshSpec(data=args.mesh_data, fsdp=args.mesh_fsdp).resolve(world)
+        resolved = spec.resolve(world)
     except ValueError as err:
         parser.error(f"--mesh-data {args.mesh_data} --mesh-fsdp "
-                     f"{args.mesh_fsdp} over {world} processes: {err}")
+                     f"{args.mesh_fsdp} --mesh-tensor {args.mesh_tensor} "
+                     f"over {world} processes: {err}")
     if args.grad_accum < 1:
         parser.error(f"--grad-accum must be >= 1, got {args.grad_accum}")
-    global_batch = args.batch_size * world
+    # the processes of one tensor group read the same rows
+    global_batch = args.batch_size * resolved.data * resolved.fsdp
+    mesh = make_mesh(spec) if args.partition != "dp" else None
     logger.info("Starting distributed training with %d processes on %s "
                 "(process %d)", world, device, config.process_id)
     logger.info("Configuration: epochs=%d, batch_size=%d (global %d), lr=%s",
@@ -323,12 +366,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif ds_classes > args.num_classes:
             parser.error(f"--num-classes {args.num_classes} < dataset "
                          f"label space {ds_classes}")
-    model = build_model(args, device, image_size)
+    tp_kw = ({"tensor_parallel": TensorParallel.from_mesh(mesh)}
+             if args.partition == "tp" else {})
+    model = build_model(args, device, image_size, **tp_kw)
     task = build_task(args, model)
     train_loader = DeviceLoader(train_ds, global_batch, device=device,
-                                shuffle=True, seed=args.seed)
+                                shuffle=True, seed=args.seed, mesh=mesh)
     val_loader = DeviceLoader(val_ds, global_batch, device=device,
-                              shuffle=False, seed=args.seed)
+                              shuffle=False, seed=args.seed, mesh=mesh)
     logger.info("Dataset size: %d, batches per epoch: %d", len(train_ds),
                 len(train_loader))
     try:
@@ -347,8 +392,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         every_k=args.grad_accum,
     )
     if args.partition == "fsdp":
-        partitioner = fsdp(make_mesh(MeshSpec(data=args.mesh_data,
-                                              fsdp=args.mesh_fsdp)))
+        partitioner = fsdp(mesh)
+    elif args.partition == "tp":
+        partitioner = transformer_partitioner(mesh)
     else:
         partitioner = data_parallel(world, dp_shard_opt_state=args.zero1)
     # the wire policy rides the partitioner, as in the JAX CLI

@@ -30,12 +30,17 @@ Behavioural parity with the reference's ``main()`` orchestration
   ``checkpoint_fallbacks``), the chaos hooks (``robustness/chaos.py``), a
   check of the async saver after every step and its drain at the end;
 - a cross-process barrier per epoch (train.py:310);
-- ZeRO-1, FSDP and the wire layer through ``partitioner`` (``parallel/``:
-  ``data_parallel`` or ``fsdp``, lowered from a ``PlanSpec``), and in-step
+- ZeRO-1, FSDP, tensor parallelism and the wire layer through
+  ``partitioner`` (``parallel/``: ``data_parallel``, ``fsdp`` or
+  ``transformer_partitioner``, lowered from a ``PlanSpec``), and in-step
   gradient accumulation (``grad_accum_steps``), both in the step. Under
   FSDP each rank holds its tiles between steps; validation gathers the
   parameters for its pass, a gathered checkpoint gathers them too, and
-  the cost record's ``hbm_peak_bytes`` is this rank's.
+  the cost record's ``hbm_peak_bytes`` is this rank's. Under tensor
+  parallelism a rank holds its slices throughout: the cost record's
+  FLOPs and ``hbm_peak_bytes`` are its share, and the step's and
+  validation's means run over the data axes (a tensor group's ranks read
+  the same rows).
 
 ``checkpoint_format`` is ``auto`` (the sharded format for a multi-process
 job, whose saves gather nothing and write on the saver's thread; one
@@ -196,7 +201,8 @@ class Trainer:
             skip_nonfinite=skip_nonfinite, seed=seed,
         )
         self.train_step = self._step
-        self.eval_step = build_eval_step(task, seed=seed)
+        self.eval_step = build_eval_step(task, seed=seed,
+                                         partitioner=partitioner)
         self.state = TrainState(step=0, model=model, optimizer=optimizer,
                                 rng=seed_key(seed))
         if metrics_file is None and checkpoint_dir:

@@ -48,6 +48,14 @@ and a tile's gather from every rank on save (one library all-gather) and
 are sliced back out on load. The sharded checkpoint format gathers
 nothing: :meth:`StateLayout.chunks` gives what this rank owns of each
 leaf, a :class:`Chunk` for a tile.
+
+Under tensor parallelism the model's layers hold slices of their leaves,
+and the torch optimizer keeps the moments of those slices:
+:class:`TensorLayout` (:func:`layout_of` picks it for such a model)
+gathers them whole over the tensor group, cuts whole leaves back to the
+rank's slice, and names each slice a :class:`Chunk` of JAX's TP layout;
+:class:`TensorUpdate` is the step's side (the gradient mean over the
+data axes and the norms that count a slice once per tensor group).
 """
 
 from __future__ import annotations
@@ -64,8 +72,12 @@ import numpy as np
 import torch
 
 from distributed_pytorch_example_tpu_torch import interop
+from distributed_pytorch_example_tpu_torch.parallel import (
+    tensor_parallel as tplib,
+)
 from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.runtime import distributed
+from distributed_pytorch_example_tpu_torch.runtime import mesh as mesh_lib
 from distributed_pytorch_example_tpu_torch.runtime.logging import get_logger
 from distributed_pytorch_example_tpu_torch.telemetry.sentinels import (
     global_norm,
@@ -1321,6 +1333,217 @@ class FSDPLayout(ShardedLayout):
 
     def refresh(self) -> None:
         """Nothing: :meth:`load_params` wrote the tiles themselves."""
+
+
+class TensorLayout(StateLayout):
+    """The tensor-parallel layout: a leaf the model's tensor axis cuts
+    lives on this rank as its slice (the parameter, its moments), part
+    ``index`` of ``size`` along its ``dims`` entry in the JAX layout, the
+    place JAX's TP spec gives it. The gathered format gathers the slices
+    (one float32 all-gather over the tensor group, a collective), so its
+    file equals the replicated run's; the sharded format writes each
+    slice as a :class:`Chunk` (from the ranks of data index 0, every
+    whole leaf from rank 0); a load keeps this rank's slice of each cut
+    leaf, whatever layout wrote it. ``partitioner`` stamps the mesh
+    manifest (None: the model alone)."""
+
+    def __init__(self, model: torch.nn.Module, partitioner=None):
+        super().__init__(model)
+        self.partitioner = partitioner
+        self.tp = tplib.tensor_parallel_of(model)
+        self.dims = interop.tensor_dims(model, self.leaves)
+        self.primary = partitioner is None or all(
+            partitioner.mesh.axis_index(a) == 0
+            for a in mesh_lib.data_axes(partitioner.mesh))
+
+    def full_shapes(self) -> List[tuple]:
+        out = []
+        for leaf, t, d in zip(self.leaves, self.targets, self.dims):
+            shape = list(leaf.jax_shape(t.shape))
+            if d is not None:
+                shape[d] *= self.tp.size
+            out.append(tuple(shape))
+        return out
+
+    def to_full(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return tplib.gather_leaves(
+            [leaf.to_jax(t) for leaf, t in zip(self.leaves, tensors)],
+            self.dims, self.tp)
+
+    def chunks(self, tensors: Sequence[torch.Tensor]) -> list:
+        """A cut leaf's slice as this rank's :class:`Chunk` (at
+        ``index * width`` of its dim); a whole leaf as it is."""
+        out = []
+        for leaf, t, d, full in zip(self.leaves, tensors, self.dims,
+                                    self.full_shapes()):
+            if d is None:
+                out.append(leaf.to_jax(t))
+                continue
+            start = [0] * len(full)
+            start[d] = self.tp.index * (full[d] // self.tp.size)
+            out.append(Chunk(full, start, leaf.to_jax(t), self.tp.size,
+                             primary=self.primary))
+        return out
+
+    def from_full(self, fulls: Sequence) -> List[torch.Tensor]:
+        """Whole leaves (or this rank's :class:`Chunk` of a cut one) ->
+        tensors shaped like the targets."""
+        out = []
+        for leaf, f, d in zip(self.leaves, fulls, self.dims):
+            if isinstance(f, Chunk):
+                f = f.data
+            elif d is not None:
+                f = tplib.take(interop.as_tensor(f), d, self.tp)
+            out.append(leaf.from_jax(interop.as_tensor(f)).contiguous())
+        return out
+
+    @torch.no_grad()
+    def params(self, gather: bool = True) -> dict:
+        targets = [t.detach() for t in self.targets]
+        return self.tree(self.to_full(targets) if gather
+                         else self.chunks(targets))
+
+    @torch.no_grad()
+    def load_params(self, tree: dict) -> None:
+        values = []
+        for leaf, full in zip(self.leaves, self.full_shapes()):
+            value = _lookup(tree, leaf.path, "params leaf")
+            if tuple(value.shape) != full:
+                raise ValueError(f"checkpoint params {leaf.key}: shape "
+                                 f"{tuple(value.shape)}, this model's {full}")
+            values.append(value)
+        extra = {"/".join(p) for p in _leaf_paths(tree)} - {
+            leaf.key for leaf in self.leaves}
+        if extra:
+            raise ValueError("checkpoint params hold leaves this model "
+                             "lacks: " + ", ".join(sorted(extra)))
+        for p, own in zip(self.targets, self.from_full(values)):
+            p.copy_(own)
+
+
+def layout_of(model: torch.nn.Module) -> StateLayout:
+    """The layout of a model's own state: :class:`TensorLayout` for a
+    model built over more than one tensor rank, else
+    :class:`StateLayout`."""
+    if tplib.tensor_parallel_of(model) is not None:
+        return TensorLayout(model)
+    return StateLayout(model)
+
+
+class TensorUpdate:
+    """The step's side of tensor parallelism (``PlanSpec(family=
+    "transformer")``; in JAX, GSPMD's program for the TP rules). The model
+    holds its slices, and the torch optimizer updates them in place, so
+    nothing is rebound; each step the gradients, whole for a replicated
+    leaf (the same on every rank of a tensor group) and a slice for a cut
+    one, are averaged over the data axes (:meth:`sync`), and the norms
+    sum a slice's squares over the tensor group once and count a whole
+    leaf once (:meth:`global_norm`, :meth:`norm_and_count`,
+    :meth:`nonfinite_count`, :meth:`param_norm`), as JAX's sentinels do
+    over the global arrays.
+
+    Built only where the model's cuts are the partitioner's: every leaf's
+    dim must be ``partitioner.tensor_dim`` of its whole shape. Lamb and
+    adafactor (whole-leaf statistics), a compressed wire and bucketing are
+    refused (ROADMAP.md queue 1, item 11)."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
+                 partitioner):
+        if isinstance(optimizer.optimizer, (Lamb, Adafactor)):
+            raise NotImplementedError(
+                f"{type(optimizer.optimizer).__name__} under tensor "
+                "parallelism is not ported to the PyTorch package yet; see "
+                "ROADMAP.md queue 1, item 11")
+        wire = partitioner.wire or wirelib.WireConfig()
+        if (wire.compress != "none" or wire.param_gather != "float32"
+                or wire.bucketed):
+            raise NotImplementedError(
+                "a compressed or bucketed wire under tensor parallelism is "
+                "not ported to the PyTorch package yet; see ROADMAP.md "
+                "queue 1, item 11")
+        mesh = partitioner.mesh
+        tp = tplib.TensorParallel.from_mesh(mesh, partitioner.tensor_axis)
+        have = tplib.tensor_parallel_of(model) or tplib.TensorParallel()
+        if (have.size, have.index) != (tp.size, tp.index):
+            raise ValueError(
+                f"the model is built for tensor rank {have.index} of "
+                f"{have.size}, the mesh puts this process at {tp.index} of "
+                f"{tp.size}: build it with tensor_parallel="
+                "TensorParallel.from_mesh(mesh)")
+        self.model, self.partitioner, self.tp = model, partitioner, tp
+        self.layout_ = TensorLayout(model, partitioner)
+        for leaf, d, full in zip(self.layout_.leaves, self.layout_.dims,
+                                 self.layout_.full_shapes()):
+            want = partitioner.tensor_dim(leaf.key, full)
+            if want != d:
+                raise ValueError(
+                    f"{leaf.key} {full}: the model cuts dim {d} over the "
+                    f"tensor axis, the partitioner's rules dim {want}")
+        self.params = list(self.layout_.targets)
+        self.cut = [d is not None for d in self.layout_.dims]
+        self.data_group, self.data_size = mesh_lib.data_group(mesh)
+        optimizer.norm_fn = self.global_norm
+
+    def _split(self, tensors):
+        """(cut leaves' tensors, whole leaves' tensors), Nones dropped."""
+        cut = [t for t, c in zip(tensors, self.cut) if c and t is not None]
+        whole = [t for t, c in zip(tensors, self.cut)
+                 if not c and t is not None]
+        return cut, whole
+
+    def _sums(self, tensors, count: bool) -> torch.Tensor:
+        """[sum of squares, non-finite elements] over the whole model:
+        the cut leaves' partial sums added over the tensor group (one
+        all-reduce), the whole leaves' counted once."""
+        cut, whole = self._split(tensors)
+        device = self.params[0].device
+        sums = torch.zeros(2, device=device)
+        if cut:
+            part = torch.stack([global_norm(cut).square(),
+                                nonfinite_count(cut) if count
+                                else torch.zeros((), device=device)])
+            sums = distributed.all_reduce_sum_(part, self.tp.group)
+        if whole:
+            sums = sums + torch.stack([global_norm(whole).square(),
+                                       nonfinite_count(whole) if count
+                                       else torch.zeros((), device=device)])
+        return sums
+
+    def _grads(self):
+        return [p.grad for p in self.params]
+
+    @torch.no_grad()
+    def sync(self, accum: int = 1) -> None:
+        """Every gradient's mean over the data axes (one flat all-reduce
+        over their group), then / ``accum``, in place."""
+        grads = [g for g in self._grads() if g is not None]
+        if self.data_size > 1 and grads:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            distributed.all_reduce_sum_(flat, self.data_group)
+            flat.div_(self.data_size)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+        if accum > 1:
+            torch._foreach_div_(grads, float(accum))
+
+    def global_norm(self) -> torch.Tensor:
+        return self._sums(self._grads(), count=False)[0].sqrt()
+
+    def norm_and_count(self):
+        sums = self._sums(self._grads(), count=True)
+        return sums[0].sqrt(), sums[1]
+
+    def nonfinite_count(self) -> torch.Tensor:
+        return self._sums(self._grads(), count=True)[1]
+
+    def param_norm(self) -> torch.Tensor:
+        return self._sums([p.detach() for p in self.params],
+                          count=False)[0].sqrt()
+
+    def layout(self) -> TensorLayout:
+        return self.layout_
 
 
 def _leaf_paths(tree, prefix=()):

@@ -38,6 +38,7 @@ from distributed_pytorch_example_tpu_torch.train.optimizers import (
     Optimizer,
     StateLayout,
     _expect_keys,
+    layout_of,
 )
 
 STATE_KEYS = ("step", "params", "opt_state", "model_state", "rng")
@@ -62,11 +63,12 @@ def state_tree(state: TrainState, layout: Optional[StateLayout] = None,
     """The state as the flax tree, its tensors where they live (views in
     the JAX layout; under ZeRO-1 the moments are gathered, under FSDP the
     parameters too: collectives). ``layout`` defaults to the replicated
-    one of ``state.model``. ``gather=False``: a leaf the layout shards is
+    one of ``state.model`` (its tensor-parallel one when the model is cut
+    over a tensor axis: ``optimizers.layout_of``). ``gather=False``: a leaf the layout shards is
     this rank's ``Chunk`` instead, and nothing is exchanged (the sharded
     checkpoint format)."""
     if layout is None:
-        layout = StateLayout(state.model)
+        layout = layout_of(state.model)
     return {
         "step": np.asarray(state.step, dtype=np.int32),
         "params": layout.params(gather),
@@ -109,7 +111,7 @@ def train_state_from_flax(state: TrainState, tree: dict,
     ``state`` in place; returns it. Raises, before changing anything, on a
     tree of another model or optimizer configuration."""
     if layout is None:
-        layout = StateLayout(state.model)
+        layout = layout_of(state.model)
     _expect_keys(tree, STATE_KEYS, "state")
     rng = np.asarray(tree["rng"])
     if rng.dtype != np.uint32 or rng.shape != (2,):

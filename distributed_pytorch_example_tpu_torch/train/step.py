@@ -35,7 +35,18 @@ manual data modes:
   reduce-scatters the gradients to the tiles in one ``sync_grads`` call
   over ``fsdp`` (then an all-reduce over ``data``), scaled by
   ``1 / (world * grad_accum_steps)``, updates the tiles and frees the
-  gathered parameters. ``param_norm`` comes from the tiles.
+  gathered parameters. ``param_norm`` comes from the tiles;
+- **tensor** (a partitioner of the ``transformer`` family): the model's
+  layers hold their slices and run the tensor group's collectives
+  themselves (``parallel/tensor_parallel.py``); the step is the
+  replicated one over the data axes (``train/optimizers.py``
+  ``TensorUpdate``): one all-reduce mean of the gradients over the data
+  group, and norms that count a slice's squares once per tensor group.
+
+"World" below is the data-parallel world, the ranks over the mesh's data
+axes: every process, but under tensor parallelism one rank of each
+tensor group. Every mean of the step and the eval step runs over its
+group; a tensor group's ranks hold the same rows and the same metrics.
 
 ``grad_accum_steps = N`` runs N microbatches (contiguous slices of the
 local batch) before the one sync, accumulating float32 gradients (the
@@ -106,9 +117,11 @@ from distributed_pytorch_example_tpu_torch.models.batchnorm import (
 from distributed_pytorch_example_tpu_torch.ops import collectives
 from distributed_pytorch_example_tpu_torch.parallel import wire as wirelib
 from distributed_pytorch_example_tpu_torch.runtime import distributed
+from distributed_pytorch_example_tpu_torch.runtime import mesh as mesh_lib
 from distributed_pytorch_example_tpu_torch.train.optimizers import (
     FSDPUpdate,
     ShardedUpdate,
+    TensorUpdate,
     global_norm,
     nonfinite_count,
 )
@@ -157,13 +170,25 @@ def _all_reduce_mean_grads(grads) -> None:
     _unflat(flat, grads)
 
 
-def _mean_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Cross-process mean of the scalar metrics, in one collective."""
-    if distributed.process_count() == 1:
+def _data_world(partitioner):
+    """``(group, size)`` of the data-parallel world: the processes, or the
+    partitioner's mesh's data axes (``runtime.mesh.data_group``)."""
+    if partitioner is None:
+        return None, distributed.process_count()
+    return mesh_lib.data_group(partitioner.mesh)
+
+
+def _mean_metrics(metrics: Dict[str, torch.Tensor],
+                  data) -> Dict[str, torch.Tensor]:
+    """Mean of the scalar metrics over the data-parallel world ``data`` =
+    (group, size), in one collective."""
+    group, size = data
+    if size == 1:
         return metrics
     names = sorted(metrics)
     packed = torch.stack([metrics[k].float() for k in names])
-    distributed.all_reduce_mean_(packed)
+    distributed.all_reduce_sum_(packed, group)
+    packed.div_(size)
     return dict(zip(names, packed.unbind()))
 
 
@@ -181,32 +206,36 @@ def _microbatches(batch, n: int):
 
 
 def _task_loss(task, model, batch, *, train: bool, task_kw: dict,
-               global_count: bool):
+               global_count: bool, data):
     """``(loss, metrics)`` of one (micro)batch. With ``global_count``, a
-    task with ``compute_sums`` is normalised by the count over every
-    process (one all-reduce of the count, before the backward pass): the
-    local loss is sum * world / global count, so the cross-process mean
-    of losses, metrics and gradients is sum / global count."""
+    task with ``compute_sums`` is normalised by the count over the
+    data-parallel world ``data`` = (group, size) (one all-reduce of the
+    count, before the backward pass): the local loss is sum * world /
+    global count, so the world's mean of losses, metrics and gradients is
+    sum / global count."""
     if not (global_count and hasattr(task, "compute_sums")):
         return task.compute_loss(model, batch, train=train, **task_kw)
     loss_sum, sums, count = task.compute_sums(model, batch, train=train,
                                               **task_kw)
+    group, size = data
     total = count.float().reshape(1)
-    distributed.all_reduce_sum_(total)
-    denom = total[0].clamp_min(1) / distributed.process_count()
+    if size > 1:
+        distributed.all_reduce_sum_(total, group)
+    denom = total[0].clamp_min(1) / size
     loss = loss_sum / denom
     return loss, {"loss": loss.detach(),
                   **{k: v / denom for k, v in sums.items() if k != "loss"}}
 
 
 def _backward(task, model, batch, n: int, task_kw: dict,
-              global_count: bool) -> Dict[str, torch.Tensor]:
+              global_count: bool, data) -> Dict[str, torch.Tensor]:
     """Forward + backward over ``n`` microbatches; the gradients sum into
     ``.grad``, the metrics are their mean."""
     per = []
     for mb in (batch,) if n == 1 else _microbatches(batch, n):
         loss, metrics = _task_loss(task, model, mb, train=True,
-                                   task_kw=task_kw, global_count=global_count)
+                                   task_kw=task_kw, global_count=global_count,
+                                   data=data)
         loss.backward()
         per.append(metrics)
     if n == 1:
@@ -237,21 +266,28 @@ def build_train_step(
     if wire is None:
         wire = getattr(partitioner, "wire", None) or wirelib.WireConfig()
     fsdp = getattr(partitioner, "fsdp_axis", None) is not None
-    manual = partitioner is not None and (
+    tensor = getattr(partitioner, "tensor_axis", None) is not None
+    manual = partitioner is not None and not tensor and (
         fsdp or partitioner.dp_shard_opt_state or grad_accum_steps > 1
         or wire.compress != "none" or wire.bucketed
     )
+    data = _data_world(partitioner)
     updates: Dict[int, ShardedUpdate] = {}
 
     def sharded(state: TrainState) -> ShardedUpdate:
         key = id(state.optimizer)
         if key not in updates:
-            updates[key] = (
-                FSDPUpdate(state.model, state.optimizer, partitioner) if fsdp
-                else ShardedUpdate(
+            if tensor:
+                updates[key] = TensorUpdate(state.model, state.optimizer,
+                                            partitioner)
+            elif fsdp:
+                updates[key] = FSDPUpdate(state.model, state.optimizer,
+                                          partitioner)
+            else:
+                updates[key] = ShardedUpdate(
                     state.model, state.optimizer, partitioner,
                     distributed.process_index(),
-                    distributed.process_count()))
+                    distributed.process_count())
         return updates[key]
 
     def manual_sync(state: TrainState):
@@ -285,7 +321,7 @@ def build_train_step(
         fold_in = getattr(model, "fold_in", None)
         if fold_in is not None:  # dropout draws from (seed, step) alone
             fold_in(state.step)
-        if manual:
+        if manual or tensor:
             update = sharded(state)  # rebinds the optimizer before its use
             if fsdp:
                 update.materialize()  # the parameters' gathers
@@ -294,7 +330,7 @@ def build_train_step(
         model.zero_grad(set_to_none=True)
         optimizer.zero_grad()
         task_kw = _task_kwargs(task, seed, _TRAIN, state.step, batch)
-        world = distributed.process_count()
+        world = data[1]
         stats = running_stats(model)
         # the running statistics update in place in the forward: a copy to
         # put back if the step is skipped
@@ -305,12 +341,19 @@ def build_train_step(
         with global_batch_stats(global_batch):
             metrics = _mean_metrics(_backward(
                 task, model, batch, grad_accum_steps, task_kw,
-                global_count=global_batch))
+                global_count=global_batch, data=data), data)
         if manual and not fsdp and stats and world > 1:
             flat = distributed.all_reduce_mean_(_flat(stats))
             _unflat(flat, stats)
         if manual:
             norm, count = manual_sync(state)
+        elif tensor:
+            update = sharded(state)
+            update.sync(grad_accum_steps)
+            if sentinels and not skip_nonfinite:
+                norm, count = update.norm_and_count()
+            else:
+                norm, count = update.global_norm(), None
         else:
             grads = [p.grad for p in optimizer.params if p.grad is not None]
             _all_reduce_mean_grads(grads)
@@ -321,7 +364,7 @@ def build_train_step(
                      if sentinels and not skip_nonfinite else None)
         bad, apply = torch.zeros((), device=norm.device), True
         if skip_nonfinite and not bool(torch.isfinite(norm)):
-            bad = (sharded(state).nonfinite_count() if manual
+            bad = (sharded(state).nonfinite_count() if manual or tensor
                    else nonfinite_count(grads))
             apply = not bool(bad > 0)
             if not apply and saved is not None:
@@ -333,7 +376,8 @@ def build_train_step(
             # a finite norm means no element is NaN or Inf: the skip's
             # count (0 then) is the sentinel's
             metrics = {**metrics, "grad_norm": norm,
-                       "param_norm": (sharded(state).param_norm() if fsdp
+                       "param_norm": (sharded(state).param_norm()
+                                      if fsdp or tensor
                                       else global_norm(model.parameters())),
                        "nonfinite_grads": bad if count is None else count}
         if manual:
@@ -345,9 +389,10 @@ def build_train_step(
 
     def layout(state: TrainState):
         """Where the optimizer keeps its state, for checkpoints: the
-        ZeRO-1 / wire update's tiles (built here if no step has run yet),
-        or None for the replicated parameters."""
-        return sharded(state).layout() if manual else None
+        ZeRO-1 / wire update's tiles or the tensor-parallel slices (built
+        here if no step has run yet), or None for the replicated
+        parameters."""
+        return sharded(state).layout() if manual or tensor else None
 
     def gathered(state: TrainState):
         """A block in which the parameters are whole (FSDP gathers them
@@ -362,14 +407,17 @@ def build_train_step(
     return train_step
 
 
-def build_eval_step(task, *, seed: int = 0
+def build_eval_step(task, *, seed: int = 0, partitioner=None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """One eval step: ``step(state, batch, batch_idx=0) -> metrics``, the
-    cross-process mean (a masked LM's over the global count of scored
-    positions, as JAX's eval on the global batch); ``batch_idx`` picks the
-    batch's draws, so validation masks do not repeat across batches.
-    BatchNorm uses its running statistics. Reference parity: ``validate``
-    under ``model.eval()`` + ``no_grad`` (train.py:154-175)."""
+    mean over the data-parallel world (the processes, or the
+    partitioner's data axes; a masked LM's over the global count of
+    scored positions, as JAX's eval on the global batch); ``batch_idx``
+    picks the batch's draws, so validation masks do not repeat across
+    batches. BatchNorm uses its running statistics. Reference parity:
+    ``validate`` under ``model.eval()`` + ``no_grad``
+    (train.py:154-175)."""
+    data = _data_world(partitioner)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch,
@@ -378,7 +426,7 @@ def build_eval_step(task, *, seed: int = 0
         _, metrics = _task_loss(
             task, state.model, batch, train=False,
             task_kw=_task_kwargs(task, seed, _EVAL, batch_idx, batch),
-            global_count=distributed.process_count() > 1)
-        return _mean_metrics(metrics)
+            global_count=data[1] > 1, data=data)
+        return _mean_metrics(metrics, data)
 
     return eval_step

@@ -33,6 +33,15 @@ def _fused_head(model) -> bool:
     return getattr(model, "logits_mode", "full") == "hidden"
 
 
+def _head_kw(model) -> dict:
+    """The fused loss's vocab-parallel arguments for a head sharded over
+    the tensor axis (``head_shard``), else none."""
+    shard = getattr(model, "head_shard", lambda: None)()
+    if shard is None:
+        return {}
+    return {"tensor_parallel": shard[0], "vocab_start": shard[1]}
+
+
 def dequantize_inputs(x: torch.Tensor) -> torch.Tensor:
     """uint8 image batches -> float32 in [0, 1] on the batch's device (the
     JAX package's ``dequantize_inputs`` contract): a uint8 model input of
@@ -84,8 +93,8 @@ class CausalLMTask:
         if _fused_head(model):
             embedding, bias = model.head_params()
             per_tok, argmax = chunked_softmax_xent(
-                out[:, :-1], embedding, targets, bias=bias, dtype=model.dtype
-            )
+                out[:, :-1], embedding, targets, bias=bias,
+                dtype=model.dtype, **_head_kw(model))
             loss = per_tok.mean()
         else:
             logits = out[:, :-1].float()
@@ -161,7 +170,8 @@ class MLMTask:
         if _fused_head(model):
             embedding, bias = model.head_params()
             per_tok, argmax = chunked_softmax_xent(
-                out, embedding, tokens, bias=bias, dtype=model.dtype)
+                out, embedding, tokens, bias=bias, dtype=model.dtype,
+                **_head_kw(model))
         else:
             logits = out.float()
             per_tok = F.cross_entropy(

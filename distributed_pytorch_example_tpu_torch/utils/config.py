@@ -13,7 +13,6 @@ import argparse
 # flag -> the JAX package's default: set to anything else, the port refuses
 UNSERVED = {
     "auto_mesh": False,
-    "mesh_tensor": 1,
     "mesh_sequence": 1,
     "sp_mode": None,
     "mesh_expert": 1,
@@ -30,7 +29,7 @@ UNSERVED = {
 }
 # the ROADMAP.md queue 1 item that ports a refused flag
 UNSERVED_ITEM = {
-    "auto_mesh": "16", "mesh_tensor": "11", "mesh_sequence": "15",
+    "auto_mesh": "16", "mesh_sequence": "15",
     "sp_mode": "15", "mesh_expert": "15", "mesh_pipe": "15",
     "pipe_microbatches": "15", "pipe_schedule": "15", "pipe_virtual": "15",
     "pipe_no_recompute": "15", "moe_experts": "15", "moe_every": "15",
@@ -91,9 +90,12 @@ def add_framework_args(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser.add_argument("--mesh-fsdp", type=int, default=1,
                         help="ranks on the fsdp axis (needs --partition "
                         "fsdp)")
+    parser.add_argument("--mesh-tensor", type=int, default=1,
+                        help="ranks on the tensor axis (needs --partition "
+                        "tp)")
     parser.add_argument("--partition", type=str, default="dp",
-                        help="dp|fsdp (tp is not ported: ROADMAP.md queue "
-                        "1, item 11)")
+                        help="dp|fsdp|tp (tp: Megatron tensor parallelism "
+                        "of gpt2 and llama over --mesh-tensor ranks)")
     parser.add_argument("--seq-len", type=int, default=512)
     parser.add_argument("--pad-token-id", type=int, default=None,
                         help="bert: mask keys at this token id out of "

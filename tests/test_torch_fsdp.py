@@ -202,7 +202,7 @@ def _check_shard_largest_axis_breaks_ties_to_the_last_dim():
 
 def _check_plan_lowers_only_the_served_families():
     mesh = make_mesh(MeshSpec(data=1, fsdp=2), world=2, groups=False)
-    for plan in (PlanSpec(family="transformer"),
+    for plan in (PlanSpec(family="transformer", zero1=True),
                  PlanSpec(family="fsdp", fsdp_rest=True)):
         with pytest.raises(NotImplementedError, match="item 11"):
             plan.lower(mesh)
